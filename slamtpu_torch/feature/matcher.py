@@ -1,0 +1,56 @@
+"""Brute-force Hamming matcher with the reference's match filter
+(counterpart of slamtpu/feature/matcher.py).
+
+Matches are a fixed-size struct of tensors with a validity mask; every
+query keeps a slot. Batched over leading dimensions (one per frame pair).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.hamming import hamming_matrix_from_bits
+
+__all__ = ["Matches", "FeatureMatcher"]
+
+_BIG = 1 << 20
+
+
+class Matches(NamedTuple):
+    """query_idx is implicit (= arange)."""
+
+    train_idx: torch.Tensor  # [..., N] int64
+    distance: torch.Tensor  # [..., N] int32
+    mask: torch.Tensor  # [..., N] bool — True where the match slot is live
+
+
+class FeatureMatcher:
+    """Brute-force Hamming matcher, crossCheck=false."""
+
+    DIST_FLOOR = 30.0  # max(ratio * min_dist, 30.0)
+
+    def match_from_bits(self, q_bits, q_pop, q_mask, t_bits, t_pop, t_mask) -> Matches:
+        """Best live train match per query from pre-unpacked bits
+        (ops.hamming.descriptor_bits). Ties go to the lowest train index."""
+        dist = hamming_matrix_from_bits(q_bits, q_pop, t_bits, t_pop)
+        if t_mask is not None:
+            dist = torch.where(t_mask[..., None, :], dist, torch.full_like(dist, _BIG))
+        best = torch.amin(dist, dim=-1)
+        idx = torch.argmin(dist, dim=-1)  # first minimum, like jnp.argmin
+        mask = torch.ones(q_bits.shape[:-1], dtype=torch.bool, device=dist.device)
+        if q_mask is not None:
+            mask = mask & q_mask
+        if t_mask is not None:
+            mask = mask & torch.gather(t_mask, -1, idx)
+        return Matches(idx, best, mask)
+
+    def filter_good_matches(self, matches: Matches, ratio: float = 2.0) -> Matches:
+        """Keep live matches with dist < max(ratio * min_dist, 30.0); min_dist
+        is taken over live matches only (per pair)."""
+        live = torch.where(matches.mask, matches.distance, torch.full_like(matches.distance, _BIG))
+        min_dist = torch.amin(live, dim=-1, keepdim=True).to(torch.float32)
+        threshold = torch.clamp(ratio * min_dist, min=self.DIST_FLOOR)
+        good = matches.mask & (matches.distance.to(torch.float32) < threshold)
+        return Matches(matches.train_idx, matches.distance, good)
