@@ -9,13 +9,20 @@ Phases, each fatal on failure:
                shared-memory summary;
   2. kernels - at the VO chunk's shapes (32 frames, 8 pyramid levels of
                1241x376), holds each kernel against its plain PyTorch version
-               on the same CUDA tensors and times kernel, plain version and,
-               where one exists, the single PyTorch call computing the same
-               function (CUDA events, median over distinct inputs);
-  3. vo      - runs slamtpu_torch.pipeline.vo.run_vo with VoConfig() defaults
+               on the same CUDA tensors, through both entry points (one
+               launch over all levels, and one launch per level): K1's corner
+               sets identical and its Harris map bit-identical 4 px in, K2
+               bit-exact. Times each kernel per chunk and per level (CUDA
+               events around the replay of a CUDA graph of many back-to-back
+               launches, divided by their count), its plain version and, where
+               one exists, the PyTorch call computing the same function;
+               counts K1's compass candidates for its operation bound;
+  3. compass - the share of the clip's pixels (all chunks and levels) that
+               pass K1's compass pre-test, and that have a FAST score;
+  4. vo      - runs slamtpu_torch.pipeline.vo.run_vo with VoConfig() defaults
                on bench.py's clip (257 rendered 1241x376 frames) in chunks of
-               32, VO_REPEATS times; checks in every run that both kernels
-               were launched, the same number of times; prints the median
+               32, VO_REPEATS times; checks in every run that each kernel was
+               launched once per chunk (9 times); prints the median
                frames/s and the spread; gates pose success >= 0.8 and
                median rotation error <= 1 deg against ground truth; and
                checks the CUDA path against the plain CPU path on a small
@@ -36,11 +43,14 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
-# f32 operations K1 does per output pixel: FAST 192 (16 differences, 16
-# negations, two 64-min/15-max arc trees, max, threshold), NMS 10, Sobel 14,
-# gradient products 3, two 7-tap box sums for three products 36, Harris 8,
-# select 1.
-K1_OPS_PER_PIXEL = 264
+# f32 operations K1's work needs on these inputs: per output pixel, the
+# compass pre-test 12 (4 differences, 8 compares), Sobel 14, gradient
+# products 3, vertical and horizontal 7-sums of three products 36, Harris 7,
+# NMS 8 maxima and 2 compares, select 1; per compass candidate, the full
+# FAST score 179 (16 differences, two 9-arc trees of 64 minima or maxima
+# and 16 of the other, negation, max, threshold compare).
+K1_OPS_PER_PIXEL = 83
+K1_OPS_PER_CANDIDATE = 179
 N_FRAMES = 257  # bench.py's clip
 VO_REPEATS = 5
 CHUNK = 32
@@ -74,6 +84,28 @@ def time_ms(torch, fn, inputs, reps: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, inputs, reps: int) -> float:
+    """Device time of one call of `fn`: reps x len(inputs) back-to-back calls
+    captured into one CUDA graph, CUDA events around its replay, divided by
+    the count. A replay runs no host code, so neither the host's launch gaps
+    nor its allocations enter the window."""
+    fn(inputs[0])  # warm-up: module load and one-time set-up happen outside the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for x in inputs:
+                fn(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * len(inputs))
+
+
 def render():
     from slamtpu_torch.io.synthetic import render_sequence
     from slamtpu_torch.odometry.camera import CameraIntrinsics
@@ -85,67 +117,73 @@ def render():
 
 
 def kernel_phase(torch, frames):
-    """K1 and K2 against their plain versions at the VO chunk's shapes."""
+    """K1 and K2 against their plain versions at the VO chunk's shapes, then
+    their device times per level and per chunk."""
     from slamtpu_torch.feature.detector import OrbConfig, _select_level, features_per_level
     from slamtpu_torch.ops.brief import PATCH_RADIUS
-    from slamtpu_torch.ops.corner import corner_response, corner_response_plain
-    from slamtpu_torch.ops.patch import extract_patches_batched, extract_patches_plain
+    from slamtpu_torch.ops.corner import (
+        corner_response,
+        corner_response_levels,
+        corner_response_levels_plain,
+        corner_response_plain,
+    )
+    from slamtpu_torch.ops.fast import fast_candidates
+    from slamtpu_torch.ops.patch import (
+        extract_patches_batched,
+        extract_patches_levels,
+        extract_patches_levels_plain,
+        extract_patches_plain,
+    )
     from slamtpu_torch.ops.pyramid import build_pyramid, gaussian_blur
 
     cfg = OrbConfig()
     quotas = features_per_level(cfg.max_features, cfg.n_levels, cfg.scale_factor)
     subpix = [lv <= cfg.subpixel_max_octave for lv in range(cfg.n_levels)]
+    thr = cfg.fast_threshold
     base = torch.as_tensor(frames[:CHUNK]).cuda().float()
     # Distinct inputs for timing: the same frames under small intensity shifts.
-    variants = [build_pyramid(base + 0.25 * i, cfg.n_levels, cfg.scale_factor) for i in range(5)]
+    variants = [[x.contiguous() for x in build_pyramid(base + 0.25 * i, cfg.n_levels, cfg.scale_factor)]
+                for i in range(5)]
     levels = variants[0]
+    launches_before = (corner_response.launches, extract_patches_batched.launches)
 
-    # --- K1 agreement ------------------------------------------------------
+    # --- K1 agreement: one launch over all levels, and the per-level entry --
+    ranked, harris = corner_response_levels(levels, thr, with_harris=True)
     k1_err, starts, blurred = 0.0, [], []
+    m = 4  # the kernel clamps its halo where the plain version wraps: Harris differs only within 4 px
     for lv, img in enumerate(levels):
-        img = img.contiguous()
-        rk, hk = corner_response(img, cfg.fast_threshold, with_harris=True)
-        rn = corner_response(img, cfg.fast_threshold, with_harris=False)
-        rp, hp = corner_response_plain(img, cfg.fast_threshold, with_harris=True)
+        rk, hk = corner_response(img, thr, with_harris=True)
+        rn = corner_response(img, thr, with_harris=False)
+        rp, hp = corner_response_plain(img, thr, with_harris=True)
         torch.cuda.synchronize()
-        m = 10
-        fk, fp = torch.isfinite(rk[:, m:-m, m:-m]), torch.isfinite(rp[:, m:-m, m:-m])
+        fk, fp = torch.isfinite(ranked[lv]), torch.isfinite(rp)
         n_diff = int((fk != fp).sum())
-        if n_diff or not torch.equal(rk, rn):
-            raise AssertionError(f"K1 level {lv}: corner sets differ at {n_diff} interior pixels")
-        a, b = hk[:, m:-m, m:-m], hp[:, m:-m, m:-m]
-        err = (a - b).abs()
-        tol = 1e-4 * b.abs() + 1e-6 * b.abs().max()
-        if not bool((err <= tol).all()):
-            raise AssertionError(f"K1 level {lv}: Harris outside rtol 1e-4 (max abs err {float(err.max())})")
-        k1_err = max(k1_err, float(err.max()))
+        if n_diff or not (torch.equal(rk, rn) and torch.equal(rk, ranked[lv]) and torch.equal(hk, harris[lv])):
+            raise AssertionError(f"K1 level {lv}: corner sets differ at {n_diff} pixels, or the entry points differ")
+        inner = (slice(None), slice(m, -m), slice(m, -m))
+        err = float((harris[lv][inner] - hp[inner]).abs().max())
+        if not torch.equal(harris[lv][inner], hp[inner]) or not torch.equal(ranked[lv][inner], rp[inner]):
+            raise AssertionError(f"K1 level {lv}: Harris not bit-identical {m} px in (max abs err {err})")
+        k1_err = max(k1_err, err)
         log(f"K1 level {lv} {tuple(img.shape)}: {int(fk.sum())} corners, identical sets, "
-            f"Harris max abs err {float(err.max()):.3g}")
-        xy_int = _select_level(rk, quotas[lv], cfg.edge_threshold, hk if subpix[lv] else None)[0]
+            f"Harris max abs err {err} ({m} px in)")
+        xy_int = _select_level(ranked[lv], quotas[lv], cfg.edge_threshold, harris[lv] if subpix[lv] else None)[0]
         starts.append((torch.round(xy_int).to(torch.int32) - PATCH_RADIUS).contiguous())
         blurred.append(gaussian_blur(img))
 
-    # --- K2 agreement ------------------------------------------------------
-    k2_err = 0.0
+    # --- K2 agreement ----------------------------------------------------------
+    pk = extract_patches_levels(blurred, starts, PATCH_RADIUS)
+    pp = extract_patches_levels_plain(blurred, starts, PATCH_RADIUS)
+    k2_err = float((pk - pp).abs().max())
+    if not torch.equal(pk, pp):
+        raise AssertionError("K2: windows differ from the plain version")
     for lv, (img, st) in enumerate(zip(blurred, starts)):
-        pk = extract_patches_batched(img, st, PATCH_RADIUS)
-        pp = extract_patches_plain(img, st, PATCH_RADIUS)
-        k2_err = max(k2_err, float((pk - pp).abs().max()))
-        if not torch.equal(pk, pp):
+        if not torch.equal(extract_patches_batched(img, st, PATCH_RADIUS), extract_patches_plain(img, st, PATCH_RADIUS)):
             raise AssertionError(f"K2 level {lv}: windows differ from the plain version")
-    log(f"K2: all levels bit-identical to the plain version (max abs err {k2_err})")
+    log(f"K2: {tuple(pk.shape)} windows of all levels bit-identical to the plain version (max abs err {k2_err})")
 
-    # --- timing (per 32-frame chunk: all 8 levels) ---------------------------
-    def k1(pyr, fn):
-        for lv, img in enumerate(pyr):
-            fn(img, cfg.fast_threshold, with_harris=subpix[lv])
-
+    # --- timing -----------------------------------------------------------------
     blurred_variants = [[gaussian_blur(img) for img in pyr] for pyr in variants]
-
-    def k2(blur, fn):
-        for img, st in zip(blur, starts):
-            fn(img, st, PATCH_RADIUS)
-
     size = 2 * PATCH_RADIUS + 1
 
     def gather_lib(blur):
@@ -157,23 +195,28 @@ def kernel_phase(torch, frames):
             bi = torch.arange(b, device=img.device)[:, None, None, None]
             img[bi, (y0[..., None] + r)[..., :, None], (x0[..., None] + r)[..., None, :]]
 
-    launches_before = (corner_response.launches, extract_patches_batched.launches)
     times = dict(
-        k1=time_ms(torch, lambda p: k1(p, corner_response), variants, reps=3),
-        k1_plain=time_ms(torch, lambda p: k1(p, corner_response_plain), variants[:3]),
-        k2=time_ms(torch, lambda bl: k2(bl, extract_patches_batched), blurred_variants, reps=3),
-        k2_plain=time_ms(torch, lambda bl: k2(bl, extract_patches_plain), blurred_variants[:3]),
-        k2_lib=time_ms(torch, gather_lib, blurred_variants, reps=3),
+        k1=device_ms(torch, lambda p: corner_response_levels(p, thr, subpix), variants, reps=4),
+        k1_levels=[device_ms(torch, lambda p, lv=lv: corner_response(p[lv], thr, subpix[lv]), variants, reps=4)
+                   for lv in range(cfg.n_levels)],
+        k1_plain=time_ms(torch, lambda p: corner_response_levels_plain(p, thr, subpix), variants[:3]),
+        k2=device_ms(torch, lambda bl: extract_patches_levels(bl, starts, PATCH_RADIUS), blurred_variants, reps=10),
+        k2_levels=[device_ms(torch, lambda bl, lv=lv: extract_patches_batched(bl[lv], starts[lv], PATCH_RADIUS),
+                             blurred_variants, reps=10) for lv in range(cfg.n_levels)],
+        k2_plain=time_ms(torch, lambda bl: extract_patches_levels_plain(bl, starts, PATCH_RADIUS),
+                         blurred_variants[:3]),
+        k2_lib=device_ms(torch, gather_lib, blurred_variants, reps=4),
     )
     # Comparison and timing launches do not count as main-path launches.
     corner_response.launches, extract_patches_batched.launches = launches_before
 
-    # --- bounds from this run's shapes and data -------------------------------
+    # --- bounds from this run's shapes and data ----------------------------------
     px = sum(img.numel() for img in levels)
     px_harris = sum(img.numel() for lv, img in enumerate(levels) if subpix[lv])
+    n_cand = sum(int(fast_candidates(img, thr).sum()) for img in levels)
     k1_bytes = 4 * (2 * px + px_harris)
-    k1_ops = K1_OPS_PER_PIXEL * px
-    k2_write = sum(st.shape[0] * st.shape[1] * size * size * 4 for st in starts)
+    k1_ops = K1_OPS_PER_PIXEL * px + K1_OPS_PER_CANDIDATE * n_cand
+    k2_write = pk.numel() * 4
     k2_read = 0
     for img, st in zip(blurred, starts):  # distinct window pixels this data reads
         b, h, w = img.shape
@@ -186,23 +229,51 @@ def kernel_phase(torch, frames):
             covered.index_put_((bi, yy, xx), sgn * one, accumulate=True)
         covered = covered.cumsum(1).cumsum(2)
         k2_read += 4 * int((covered[:, :h, :w] > 0).sum())
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_FLOP_PER_S) * 1e3
+    k1_bytes_ms, k1_ops_ms = k1_bytes / HBM_BYTES_PER_S * 1e3, k1_ops / FP32_FLOP_PER_S * 1e3
+    k1_bound = max(k1_bytes_ms, k1_ops_ms)
     k2_bound = (k2_read + k2_write) / HBM_BYTES_PER_S * 1e3
-    log(f"K1 per chunk: kernel {times['k1']:.4f} ms, plain {times['k1_plain']:.4f} ms, bound "
-        f"{k1_bound:.4f} ms ({k1_bytes / 1e6:.1f} MB, {k1_ops / 1e9:.2f} GFLOP)")
-    log(f"K2 per chunk: kernel {times['k2']:.4f} ms, plain {times['k2_plain']:.4f} ms, gather "
-        f"{times['k2_lib']:.4f} ms, bound {k2_bound:.4f} ms ({(k2_read + k2_write) / 1e6:.1f} MB)")
+    log(f"K1 per chunk: one launch {times['k1']:.4f} ms; per-level launches "
+        f"{[round(t, 4) for t in times['k1_levels']]} (sum {sum(times['k1_levels']):.4f} ms); plain "
+        f"{times['k1_plain']:.4f} ms; bound {k1_bound:.4f} ms by "
+        f"{'operations' if k1_ops_ms > k1_bytes_ms else 'bytes'} (bytes {k1_bytes / 1e6:.1f} MB = "
+        f"{k1_bytes_ms:.4f} ms; operations {k1_ops / 1e9:.3f} GFLOP = {k1_ops_ms:.4f} ms: {px} px, "
+        f"{n_cand} compass candidates = {n_cand / px:.4f} of pixels)")
+    log(f"K2 per chunk: one launch {times['k2']:.4f} ms; per-level launches "
+        f"{[round(t, 4) for t in times['k2_levels']]} (sum {sum(times['k2_levels']):.4f} ms); plain "
+        f"{times['k2_plain']:.4f} ms; gather {times['k2_lib']:.4f} ms; bound {k2_bound:.4f} ms "
+        f"({(k2_read + k2_write) / 1e6:.1f} MB)")
     return [
         dict(name="corner_response", route="cuda", source="slamtpu_torch/csrc/corner_response.cu",
              replaces="slamtpu/ops/pallas_corner.py:165", launches=None, max_abs_err=k1_err,
              ms=times["k1"], plain_ms=times["k1_plain"], bound_ms=k1_bound,
-             bound_by="operations" if k1_ops / FP32_FLOP_PER_S > k1_bytes / HBM_BYTES_PER_S else "bytes",
-             library_ms=None),
+             bound_by="operations" if k1_ops_ms > k1_bytes_ms else "bytes", library_ms=None),
         dict(name="extract_patches_batched", route="cuda", source="slamtpu_torch/csrc/extract_patches.cu",
              replaces="slamtpu/ops/pallas_patch.py:80", launches=None, max_abs_err=k2_err,
              ms=times["k2"], plain_ms=times["k2_plain"], bound_ms=k2_bound, bound_by="bytes",
              library_ms=times["k2_lib"]),
-    ]
+    ], times
+
+
+def compass_phase(torch, frames):
+    """Share of the clip's pixels (all chunks, all levels) that pass K1's
+    compass pre-test, and of those with a FAST score."""
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.ops.fast import fast_candidates, fast_score
+    from slamtpu_torch.ops.pyramid import build_pyramid
+
+    cfg = OrbConfig()
+    px = cand = scored = 0
+    for start in range(0, len(frames), CHUNK):
+        chunk = torch.as_tensor(frames[start : start + CHUNK]).cuda().float()
+        for img in build_pyramid(chunk, cfg.n_levels, cfg.scale_factor):
+            px += img.numel()
+            cand += int(fast_candidates(img, cfg.fast_threshold).sum())
+            scored += int((fast_score(img, cfg.fast_threshold) > 0).sum())
+    if scored > cand:
+        raise AssertionError("more pixels have a FAST score than pass the compass pre-test")
+    log(f"compass pre-test on the clip ({len(frames)} frames, {cfg.n_levels} levels, {px} px): "
+        f"{cand} candidates = {cand / px:.4f} of pixels; FAST score > 0 at {scored} = {scored / px:.4f}")
+    return dict(pixels=px, candidates=cand, candidate_share=cand / px, scored=scored, scored_share=scored / px)
 
 
 def vo_phase(torch, scene):
@@ -217,6 +288,7 @@ def vo_phase(torch, scene):
     run_vo(scene.frames[: CHUNK + 1], scene.intrinsics, config, chunk_size=CHUNK, device="cuda")  # warm-up
 
     elapsed, launches = [], None
+    n_chunks = -(-N_FRAMES // CHUNK)
     for _ in range(VO_REPEATS):
         corner_response.launches = 0
         extract_patches_batched.launches = 0
@@ -227,8 +299,8 @@ def vo_phase(torch, scene):
         counts = {"corner_response": corner_response.launches,
                   "extract_patches_batched": extract_patches_batched.launches}
         for name, n in counts.items():
-            if n == 0:
-                raise AssertionError(f"the VO run never launched kernel {name}")
+            if n != n_chunks:
+                raise AssertionError(f"the VO run launched kernel {name} {n} times, not once per chunk ({n_chunks})")
         if launches is not None and counts != launches:
             raise AssertionError(f"launch counts changed between runs: {launches} vs {counts}")
         launches = counts
@@ -322,7 +394,7 @@ def main() -> int:
     for name, text in logs.items():
         log(f"--- nvcc {name} ---")
         for line in text.splitlines():
-            if "ptxas" in line or "error" in line.lower():
+            if "ptxas" in line or "spill" in line or "error" in line.lower():
                 log(line)
     log(f"build: {sorted(logs) or 'cached'} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -331,13 +403,14 @@ def main() -> int:
     card = gpu_name_and_power()
     log(f"device: {torch.cuda.get_device_name(0)} ({card})")
 
-    kernels = kernel_phase(torch, scene.frames)
+    kernels, times = kernel_phase(torch, scene.frames)
+    compass = compass_phase(torch, scene.frames)
     launches, vo = vo_phase(torch, scene)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     reference_phase(torch)
 
-    log(json.dumps({"vo": vo, "card": card}))
+    log(json.dumps({"vo": vo, "compass": compass, "kernel_times_ms": times, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,13 @@
 
 Fixed shapes: each pyramid level contributes a static quota of keypoints
 (OpenCV's geometric per-level distribution) and short levels pad with
-masked slots. Per level: Gaussian blur, kernel K1 (ops/corner.py: FAST +
-NMS + Harris ranking), exact top-k with a sub-pixel Harris fit at the
-finest levels, kernel K2 (ops/patch.py: 39x39 windows of the blurred
-level), intensity-centroid orientation and binned rBRIEF. Both kernels run
-on CUDA tensors; their plain versions on CPU tensors.
+masked slots. One launch of kernel K1 (ops/corner.py: FAST + NMS + Harris
+ranking) covers every level; then, per level, exact top-k with a
+sub-pixel Harris fit at the finest levels; one launch of kernel K2
+(ops/patch.py) cuts the 39x39 windows of every level's blurred image into
+one [B, K, 39, 39] tensor in slot order; intensity-centroid orientation and
+binned rBRIEF run once over all K slots. Both kernels run on CUDA tensors;
+their plain versions on CPU tensors.
 
 Selection uses exact `torch.topk`; the JAX package's approx_max_k is exact
 on the CPU, where the parity tests run it.
@@ -21,8 +23,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.brief import PATCH_RADIUS, brief_descriptors_binned, orientation
-from ..ops.corner import corner_response
-from ..ops.patch import extract_patches_batched
+from ..ops.corner import corner_response_levels
+from ..ops.patch import extract_patches_levels
 from ..ops.pyramid import build_pyramid, gaussian_blur
 
 __all__ = ["OrbConfig", "OrbFeatures", "detect_and_compute", "features_per_level"]
@@ -128,34 +130,43 @@ def detect_and_compute(images: torch.Tensor, config: OrbConfig = OrbConfig()) ->
     pyramid = build_pyramid(images, config.n_levels, config.scale_factor)
     quotas = features_per_level(config.max_features, config.n_levels, config.scale_factor)
     min_extent = max(2 * PATCH_RADIUS + 1, 2 * config.edge_threshold + 1)
+    # Levels with a quota, in slot order; those too small for the patch /
+    # border margin keep masked slots so K stays static.
+    slot_levels = [lv for lv, q in enumerate(quotas) if q > 0]
+    used = [lv for lv in slot_levels if min(pyramid[lv].shape[1:]) >= min_extent]
+    level_images = {lv: pyramid[lv].contiguous() for lv in used}
+    want_sub = [config.subpixel and lv <= config.subpixel_max_octave for lv in used]
 
-    outs = []
-    for level, (level_images, quota) in enumerate(zip(pyramid, quotas)):
-        if quota == 0:
-            continue
-        scale = config.scale_factor**level
-        h_l, w_l = level_images.shape[1:]
-        octave = torch.full((batch, quota), level, dtype=torch.int32, device=device)
-        size = torch.full((batch, quota), config.patch_size * scale, dtype=torch.float32, device=device)
-        if min(h_l, w_l) < min_extent:
-            # Level too small for the patch / border margin: masked slots keep K static.
-            zeros = torch.zeros((batch, quota), dtype=torch.float32, device=device)
-            outs.append(OrbFeatures(
-                torch.zeros((batch, quota, 2), dtype=torch.float32, device=device), zeros, zeros,
-                octave, size, torch.zeros((batch, quota, 32), dtype=torch.uint8, device=device),
-                torch.zeros((batch, quota), dtype=torch.bool, device=device),
-            ))
-            continue
-        level_images = level_images.contiguous()
-        blurred = gaussian_blur(level_images)
-        want_sub = config.subpixel and level <= config.subpixel_max_octave
-        maps = corner_response(level_images, config.fast_threshold, with_harris=want_sub)
-        ranked, harris = maps if want_sub else (maps, None)
-        xy_int, xy, resp, mask = _select_level(ranked, quota, config.edge_threshold, harris)
-        starts = (torch.round(xy_int).to(torch.int32) - PATCH_RADIUS).contiguous()
-        patches = extract_patches_batched(blurred, starts, PATCH_RADIUS)
-        ang = orientation(patches)
-        desc = brief_descriptors_binned(patches, ang, config.descriptor_bins)
-        outs.append(OrbFeatures(xy * scale, resp, ang, octave, size, desc, mask))
+    # K1, one launch over every used level.
+    ranked, harris = corner_response_levels([level_images[lv] for lv in used], config.fast_threshold, want_sub)
+    xy, resp, mask, octave, size, starts = [], [], [], [], [], []
+    for lv in slot_levels:
+        q, scale = quotas[lv], config.scale_factor**lv
+        octave.append(torch.full((batch, q), lv, dtype=torch.int32, device=device))
+        size.append(torch.full((batch, q), config.patch_size * scale, dtype=torch.float32, device=device))
+        if lv in level_images:
+            i = used.index(lv)
+            xy_int, xy_l, resp_l, mask_l = _select_level(ranked[i], q, config.edge_threshold, harris[i])
+            xy.append(xy_l * scale)
+            resp.append(resp_l)
+            mask.append(mask_l)
+            starts.append((torch.round(xy_int).to(torch.int32) - PATCH_RADIUS).contiguous())
+        else:
+            xy.append(torch.zeros((batch, q, 2), dtype=torch.float32, device=device))
+            resp.append(torch.zeros((batch, q), dtype=torch.float32, device=device))
+            mask.append(torch.zeros((batch, q), dtype=torch.bool, device=device))
+            starts.append(torch.zeros((batch, q, 2), dtype=torch.int32, device=device))
 
-    return OrbFeatures(*[torch.cat(parts, dim=1) for parts in zip(*outs)])
+    # K2, one launch over every level (zero windows for the unused ones);
+    # then orientation and BRIEF once over all slots.
+    blurred = [gaussian_blur(level_images[lv]) if lv in level_images else None for lv in slot_levels]
+    patches = extract_patches_levels(blurred, starts, PATCH_RADIUS)
+    ang = orientation(patches)
+    desc = brief_descriptors_binned(patches, ang, config.descriptor_bins)
+    if len(used) < len(slot_levels):
+        used_slot = torch.cat([torch.full((batch, quotas[lv]), lv in level_images, dtype=torch.bool, device=device)
+                               for lv in slot_levels], dim=1)
+        ang = torch.where(used_slot, ang, torch.zeros_like(ang))
+        desc = torch.where(used_slot[..., None], desc, torch.zeros_like(desc))
+    xy, resp, octave, size, mask = (torch.cat(parts, dim=1) for parts in (xy, resp, octave, size, mask))
+    return OrbFeatures(xy, resp, ang, octave, size, desc, mask)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["CIRCLE_OFFSETS", "fast_score", "nms3x3"]
+__all__ = ["CIRCLE_OFFSETS", "fast_candidates", "fast_score", "nms3x3"]
 
 # Bresenham circle of radius 3, clockwise from 12 o'clock ((dy, dx) pairs).
 CIRCLE_OFFSETS = (
@@ -54,6 +54,29 @@ def fast_score(images: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
     col = torch.arange(w, device=images.device)[None, None, :]
     interior = (row >= 3) & (row < h - 3) & (col >= 3) & (col < w - 3)
     return torch.where(interior, score, zero)
+
+
+def fast_candidates(images: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """[B, H, W] f32 -> bool map of the pixels that can have a non-zero
+    FAST-9 score (the compass pre-test kernel K1 runs before its trees).
+
+    Every 9-long arc of the circle holds two consecutive compass points
+    (circle indices 0, 4, 8, 12), so a pixel whose score is above the
+    threshold has two consecutive compass differences d > threshold
+    (bright) or -d > threshold (dark). A pixel that fails both tests has a
+    score of exactly 0: the map is a superset of `fast_score(...) > 0`.
+    """
+    d = [torch.roll(images, (-CIRCLE_OFFSETS[k][0], -CIRCLE_OFFSETS[k][1]), dims=(1, 2)) - images
+         for k in (0, 4, 8, 12)]
+    bright = [x > threshold for x in d]
+    dark = [-x > threshold for x in d]
+    cand = torch.zeros_like(images, dtype=torch.bool)
+    for k in range(4):
+        cand |= (bright[k] & bright[(k + 1) % 4]) | (dark[k] & dark[(k + 1) % 4])
+    _, h, w = images.shape
+    row = torch.arange(h, device=images.device)[None, :, None]
+    col = torch.arange(w, device=images.device)[None, None, :]
+    return cand & (row >= 3) & (row < h - 3) & (col >= 3) & (col < w - 3)
 
 
 def nms3x3(score: torch.Tensor) -> torch.Tensor:

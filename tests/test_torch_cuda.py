@@ -9,8 +9,18 @@ import pytest
 import torch
 
 from slamtpu_torch.ops.brief import PATCH_RADIUS
-from slamtpu_torch.ops.corner import corner_response, corner_response_plain
-from slamtpu_torch.ops.patch import extract_patches_batched, extract_patches_plain
+from slamtpu_torch.ops.corner import (
+    corner_response,
+    corner_response_levels,
+    corner_response_levels_plain,
+    corner_response_plain,
+)
+from slamtpu_torch.ops.patch import (
+    extract_patches_batched,
+    extract_patches_levels,
+    extract_patches_levels_plain,
+    extract_patches_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +64,57 @@ def test_patch_kernel_matches_plain(cuda):
     out = extract_patches_batched(imgs, starts, PATCH_RADIUS)
     assert extract_patches_batched.launches == before + 1
     torch.testing.assert_close(out, extract_patches_plain(imgs, starts, PATCH_RADIUS), rtol=0, atol=0)
+
+
+def test_corner_levels_kernel_matches_plain(cuda):
+    """One launch over levels of odd widths, a tiny last level and a flat
+    one: corner sets identical everywhere, Harris bit-identical at least
+    4 px from the border (the kernel clamps its halo where the plain
+    version wraps)."""
+    levels = [_images(3, 2, 97, 203), _images(4, 2, 40, 59), _images(5, 2, 33, 131),
+              torch.zeros((2, 64, 70)), _images(6, 2, 5, 9)]
+    levels = [x.to(cuda).contiguous() for x in levels]
+    flags = [True, False, True, False, True]
+    before = corner_response.launches
+    ranked, harris = corner_response_levels(levels, 20.0, flags)
+    assert corner_response.launches == before + 1
+    ref_ranked, ref_harris = corner_response_levels_plain(levels, 20.0, flags)
+    m = 4
+    for lv, (rk, rp, hk, hp) in enumerate(zip(ranked, ref_ranked, harris, ref_harris)):
+        assert torch.equal(torch.isfinite(rk), torch.isfinite(rp)), lv
+        assert (hk is None) == (hp is None)
+        if rk.shape[1] > 2 * m and rk.shape[2] > 2 * m:
+            assert torch.equal(rk[:, m:-m, m:-m], rp[:, m:-m, m:-m]), lv
+            if hk is not None:
+                assert torch.equal(hk[:, m:-m, m:-m], hp[:, m:-m, m:-m]), lv
+        # The per-level entry point launches the same kernel on one level.
+        single = corner_response(levels[lv], 20.0, with_harris=flags[lv])
+        assert torch.equal(single[0] if flags[lv] else single, rk), lv
+    assert int(torch.isfinite(ranked[0]).sum()) > 100
+    assert not torch.isfinite(ranked[3]).any() and not torch.isfinite(ranked[4]).any()
+
+
+def test_patch_levels_kernel_matches_plain(cuda):
+    """One launch over levels with K_l not a multiple of 4, a level without
+    an image (zero windows), and starts on and beyond every border."""
+    levels = [_images(7, 3, 90, 261), None, _images(8, 3, 45, 77), _images(9, 3, 39, 39)]
+    levels = [None if x is None else x.to(cuda).contiguous() for x in levels]
+    rng = np.random.default_rng(10)
+    starts = []
+    for img, k in zip(levels, (13, 3, 6, 5)):
+        h, w = (50, 50) if img is None else img.shape[1:]
+        s = np.stack([rng.integers(-40, w + 5, (3, k)), rng.integers(-40, h + 5, (3, k))], -1)
+        s[:, 0], s[:, 1], s[:, 2] = (0, 0), (w - 39, h - 39), (-7, h)
+        s[:, -1] = (w, -3)
+        starts.append(torch.from_numpy(s.astype(np.int32)).to(cuda))
+    before = extract_patches_batched.launches
+    out = extract_patches_levels(levels, starts, PATCH_RADIUS)
+    assert extract_patches_batched.launches == before + 1
+    assert out.shape == (3, 27, 39, 39)
+    assert torch.equal(out, extract_patches_levels_plain(levels, starts, PATCH_RADIUS))
+    assert torch.equal(out[:, 13:16], torch.zeros_like(out[:, 13:16]))
+    small = extract_patches_levels(levels[2:], starts[2:], 3)
+    assert torch.equal(small, extract_patches_levels_plain(levels[2:], starts[2:], 3))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
