@@ -26,9 +26,29 @@ Phases, each fatal on failure:
                frames/s and the spread; gates pose success >= 0.8 and
                median rotation error <= 1 deg against ground truth; and
                checks the CUDA path against the plain CPU path on a small
-               clip.
-Then it prints one JSON line with every kernel's numbers, the card's name
-and power limit (nvidia-smi), and, last, {"ok": true, "device": {...}}.
+               clip;
+  5. flagship - runs slamtpu_torch.pipeline.point_cloud.run_point_cloud at
+               bench.py's flagship configuration (PointCloudConfig(): 500
+               features, keyframes (0.03, 0.03, 0.7, 3), a 16384-slot map,
+               BA every 5 keyframes over 5, prune every 10) on the same clip in
+               chunks of 32, FLAGSHIP_REPEATS times after a warm-up on a
+               33-frame prefix; checks in every run that each kernel was
+               launched once per chunk plus once for frame 0 (9 times); gates
+               success >= 0.8, BA runs > 0 and orthonormal keyframe
+               rotations; requires the runs to agree on keyframes, BA runs and
+               the map's ids and validity (and reports their largest pose
+               difference); then run_global_ba on the result, gated on an
+               error that is finite and not raised;
+  6. ba       - ba_solve on the card against the CPU at f64: a window-sized
+               problem (5 poses, 2048 landmarks, 4096 observations, gather
+               mode) and a global-sized one (100 poses, 4096 landmarks, dense
+               Schur in chunks of 2048, 2 iterations); times both at f32;
+  7. flagship reference - the flagship on the card against the CPU on a
+               small clip with the same RANSAC draws and a 30-round polish:
+               identical keyframes.
+Then it prints one JSON line with every kernel's numbers (launches: the
+flagship run's, equal to the VO run's), the card's name and power limit
+(nvidia-smi), and, last, {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the slamtpu_torch package.
 """
 
@@ -53,6 +73,7 @@ K1_OPS_PER_PIXEL = 83
 K1_OPS_PER_CANDIDATE = 179
 N_FRAMES = 257  # bench.py's clip
 VO_REPEATS = 5
+FLAGSHIP_REPEATS = 3
 CHUNK = 32
 HEIGHT, WIDTH = 376, 1241
 
@@ -298,9 +319,7 @@ def vo_phase(torch, scene):
         elapsed.append(time.perf_counter() - t0)
         counts = {"corner_response": corner_response.launches,
                   "extract_patches_batched": extract_patches_batched.launches}
-        for name, n in counts.items():
-            if n != n_chunks:
-                raise AssertionError(f"the VO run launched kernel {name} {n} times, not once per chunk ({n_chunks})")
+        _check_launches(counts, n_chunks, "the VO run")
         if launches is not None and counts != launches:
             raise AssertionError(f"launch counts changed between runs: {launches} vs {counts}")
         launches = counts
@@ -380,6 +399,199 @@ def reference_phase(torch):
         raise AssertionError("VO: CUDA and CPU runs disagree on match counts or miss the ground-truth gate")
 
 
+def _check_launches(counts: dict, expected: int, what: str) -> None:
+    for name, n in counts.items():
+        if n != expected:
+            raise AssertionError(f"{what} launched kernel {name} {n} times, not {expected}")
+
+
+def flagship_phase(torch, scene):
+    """The slice's main path: run_point_cloud on the card at bench.py's
+    flagship configuration, gated as bench.py gates it, run to run
+    agreement, then run_global_ba on the result."""
+    import numpy as np
+
+    from slamtpu_torch.ops.corner import corner_response
+    from slamtpu_torch.ops.patch import extract_patches_batched
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_global_ba, run_point_cloud
+
+    config = PointCloudConfig()  # == bench.py:687-695
+    run_point_cloud(scene.frames[: CHUNK + 1], scene.intrinsics, config, chunk_size=CHUNK, device="cuda")  # warm-up
+    n_pairs = N_FRAMES - 1
+    expected = -(-n_pairs // CHUNK) + 1  # one launch per chunk, one for frame 0
+    elapsed, runs, launches = [], [], None
+    for _ in range(FLAGSHIP_REPEATS):
+        corner_response.launches = 0
+        extract_patches_batched.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_point_cloud(scene.frames, scene.intrinsics, config, chunk_size=CHUNK, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        elapsed.append(time.perf_counter() - t0)
+        counts = {"corner_response": corner_response.launches,
+                  "extract_patches_batched": extract_patches_batched.launches}
+        _check_launches(counts, expected, "the flagship run")
+        launches = counts
+        runs.append(res)
+
+    res = runs[0]
+    n_kf = len(res.keyframe_frame_idx)
+    success = res.successful_frames / n_pairs
+    rot = res.keyframe_rotations.astype(np.float64)
+    ortho = float(np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max())
+    valid = res.map_state.valid
+    stable = int((valid & (res.map_state.observations >= config.min_observations)).sum())
+    pose_diff = 0.0
+    for other in runs[1:]:
+        same = (np.array_equal(other.keyframe_frame_idx, res.keyframe_frame_idx) and other.ba_runs == res.ba_runs
+                and torch.equal(other.map_state.ids, res.map_state.ids)
+                and torch.equal(other.map_state.valid, res.map_state.valid))
+        if not same:
+            raise AssertionError("two flagship runs disagree on keyframes, BA runs or the map's ids/validity")
+        pose_diff = max(pose_diff, float(np.abs(other.keyframe_rotations - res.keyframe_rotations).max()),
+                        float(np.abs(other.keyframe_translations - res.keyframe_translations).max()))
+    fps = sorted(n_pairs / e for e in elapsed)
+    kfs = sorted(n_kf / e for e in elapsed)
+    log(f"flagship: {N_FRAMES} frames {WIDTH}x{HEIGHT}, {FLAGSHIP_REPEATS} runs in {[round(e, 4) for e in elapsed]} s "
+        f"-> median {statistics.median(fps):.2f} frames/s (min {fps[0]:.2f}, max {fps[-1]:.2f}; frame pairs over "
+        f"wall time, as bench.py counts), {statistics.median(kfs):.2f} keyframes/s (min {kfs[0]:.2f}, max "
+        f"{kfs[-1]:.2f}); {n_kf} keyframes, {res.ba_runs} BA runs, landmarks {int(valid.sum())} valid / {stable} "
+        f"stable, {len(res.observations[0])} logged observations; success {success:.4f}; rotations orthonormal "
+        f"to {ortho:.2e}; largest pose difference between runs {pose_diff}; launches per run {launches}")
+    if success < 0.8 or res.ba_runs == 0 or not np.isfinite(rot).all() or ortho > 1e-4:
+        raise AssertionError(f"flagship gates failed: success {success} (>= 0.8), BA runs {res.ba_runs} (> 0), "
+                             f"orthonormality {ortho} (<= 1e-4)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, err_before, err_after = run_global_ba(res, scene.intrinsics, device="cuda")
+    torch.cuda.synchronize()
+    global_s = time.perf_counter() - t0
+    log(f"global BA over {n_kf} keyframes: {global_s:.4f} s, error {err_before} -> {err_after}")
+    if not (np.isfinite(err_after) and err_after <= err_before):
+        raise AssertionError(f"global BA raised the error or gave a non-finite one: {err_before} -> {err_after}")
+    return launches, dict(frames=N_FRAMES, fps_median=statistics.median(fps), fps_min=fps[0], fps_max=fps[-1],
+                          kf_per_s_median=statistics.median(kfs), kf_per_s_min=kfs[0], kf_per_s_max=kfs[-1],
+                          elapsed_s=elapsed, keyframes=n_kf, ba_runs=res.ba_runs, landmarks=int(valid.sum()),
+                          stable_landmarks=stable, observations=len(res.observations[0]), success_rate=success,
+                          pose_diff_between_runs=pose_diff, global_ba_s=global_s, global_err_before=err_before,
+                          global_err_after=err_after)
+
+
+def _ba_problem(torch, n_poses, n_points, per_point, seed, dtype, device):
+    """A seeded BA problem: each landmark seen by `per_point` consecutive
+    poses (once each), 0.5 px noise, a perturbed start; the first two poses
+    are frozen as the flagship's anchors."""
+    import numpy as np
+
+    from slamtpu_torch.mapping.bundle_adjustment import ObservationBatch
+    from slamtpu_torch.ops.lie import so3_exp
+
+    rng = np.random.default_rng(seed)
+    gt = np.stack([rng.uniform(-2, 2 + 0.4 * n_poses, n_points), rng.uniform(-1.5, 1.5, n_points),
+                   rng.uniform(6, 12, n_points)], 1)
+    rots = so3_exp(torch.from_numpy(rng.normal(scale=0.02, size=(n_poses, 3)))).numpy()
+    trans = np.stack([[-0.4 * i, 0.0, 0.0] for i in range(n_poses)]) + rng.normal(scale=0.02, size=(n_poses, 3))
+    first = rng.integers(0, n_poses - per_point + 1, n_points)
+    kf = np.concatenate([first + d for d in range(per_point)])
+    pt = np.tile(np.arange(n_points), per_point)
+    pc = np.einsum("mij,mj->mi", rots[kf], gt[pt]) + trans[kf]
+    px = np.stack([500.0 * pc[:, 0] / pc[:, 2] + 320.0, 500.0 * pc[:, 1] / pc[:, 2] + 240.0], 1)
+    px += rng.normal(scale=0.5, size=px.shape)
+    start = [so3_exp(torch.from_numpy(rng.normal(scale=0.003, size=(n_poses, 3)))).numpy() @ rots,
+             trans + rng.normal(scale=0.01, size=trans.shape), gt + rng.normal(scale=0.05, size=gt.shape)]
+    obs = ObservationBatch(torch.from_numpy(kf).to(device), torch.from_numpy(pt).to(device),
+                           torch.from_numpy(px).to(device=device, dtype=dtype),
+                           torch.ones(len(kf), dtype=torch.bool, device=device))
+    mask = torch.ones(n_poses, dtype=torch.bool, device=device)
+    mask[:2] = False
+    return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in start], obs, mask
+
+
+def ba_phase(torch):
+    """ba_solve on the card against the CPU at f64 (window and global
+    sizes), then the card's time per solve at f32."""
+    from slamtpu_torch.mapping.bundle_adjustment import BaConfig, ba_solve
+    from slamtpu_torch.odometry.camera import CameraIntrinsics
+
+    cam = CameraIntrinsics(500.0, 500.0, 320.0, 240.0)
+    cases = dict(
+        window=dict(shape=(5, 2048, 2), kw=dict(segment_method="gather", gather_k_pt=5), cpu_kw={}),
+        # 100 poses x 4096 landmarks; CUDA "auto" counts the observer bound
+        # and takes the gather mode; the CPU takes the scatter path.
+        global_=dict(shape=(100, 4096, 4), kw=dict(landmark_chunk=2048, config=BaConfig(max_iterations=2)),
+                     cpu_kw=dict(landmark_chunk=2048, config=BaConfig(max_iterations=2))),
+    )
+    out = {}
+    for name, case in cases.items():
+        (start, obs, mask) = _ba_problem(torch, *case["shape"], seed=1, dtype=torch.float64, device="cpu")
+        t0 = time.perf_counter()
+        ref = ba_solve(cam, *start, obs, fix_first_pose=False, pose_mask=mask, **case["cpu_kw"])
+        cpu_s = time.perf_counter() - t0
+        gstart, gobs, gmask = _ba_problem(torch, *case["shape"], seed=1, dtype=torch.float64, device="cuda")
+        got = ba_solve(cam, *gstart, gobs, fix_first_pose=False, pose_mask=gmask, **case["kw"])
+        scale = max(float(ref[2].abs().max()), 1.0)
+        diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(got[:3], ref[:3])) / scale
+        err_rel = abs(float(got[3]) - float(ref[3])) / float(ref[3])
+        if got[4] != ref[4] or diff > 1e-8 or err_rel > 1e-8:
+            raise AssertionError(f"BA {name}: CUDA vs CPU at f64 disagree (iterations {got[4]} vs {ref[4]}, "
+                                 f"state {diff:.3g}, error {err_rel:.3g}; tolerance 1e-8 relative)")
+        # The card's time at f32, CUDA events around REPS solves.
+        fstart, fobs, fmask = _ba_problem(torch, *case["shape"], seed=1, dtype=torch.float32, device="cuda")
+        solve = lambda: ba_solve(cam, *fstart, fobs, fix_first_pose=False, pose_mask=fmask, **case["kw"])  # noqa: E731
+        iters = solve()[4]
+        reps = 10 if name == "window" else 3
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        for _ in range(reps):
+            solve()
+        ev1.record()
+        torch.cuda.synchronize()
+        ms = ev0.elapsed_time(ev1) / reps
+        n_obs = int(obs.mask.sum())
+        log(f"BA {name.rstrip('_')} ({case['shape'][0]} poses, {case['shape'][1]} landmarks, {n_obs} observations): "
+            f"CUDA vs CPU at f64: {got[4]} iterations each, state diff {diff:.3g} (relative to the largest "
+            f"coordinate), error diff {err_rel:.3g} (tolerance 1e-8); error {float(ref[3]):.6g}; CPU f64 solve "
+            f"{cpu_s * 1e3:.1f} ms; card f32 {ms:.3f} ms per solve ({iters} iterations)")
+        out[name.rstrip("_")] = dict(poses=case["shape"][0], landmarks=case["shape"][1], observations=n_obs,
+                                     f64_state_diff=diff, f64_err_diff=err_rel, iterations=got[4],
+                                     f32_ms_per_solve=ms, f32_iterations=iters, cpu_f64_ms=cpu_s * 1e3)
+    return out
+
+
+def flagship_reference_phase(torch):
+    """The flagship on the card against the CPU on a small clip with the
+    same RANSAC draws and a 30-round polish."""
+    import numpy as np
+
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.io.synthetic import render_sequence
+    from slamtpu_torch.ops.ransac import RansacConfig
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud
+    from slamtpu_torch.pipeline.vo import VoConfig
+
+    scene = render_sequence(n_frames=17, height=160, width=200, n_points=600, step=0.3, seed=8, textured=True)
+    config = PointCloudConfig(vo=VoConfig(orb=OrbConfig(max_features=96, n_levels=4),
+                                          ransac=RansacConfig(iters=16, min_solver="5pt", refine_rounds=30),
+                                          keyframe=PointCloudConfig().vo.keyframe), map_capacity=2048)
+    draws = torch.rand((16, 16, 96), generator=torch.Generator().manual_seed(0))
+    runs = {dev: run_point_cloud(scene.frames, scene.intrinsics, config, chunk_size=8, device=dev,
+                                 uniforms=draws.to(dev)) for dev in ("cuda", "cpu")}
+    g, c = runs["cuda"], runs["cpu"]
+    census = {dev: (int(r.map_state.valid.sum()), len(r.observations[0])) for dev, r in runs.items()}
+    dr = float(np.abs(g.keyframe_rotations - c.keyframe_rotations).max()) if len(g.keyframe_rotations) == len(
+        c.keyframe_rotations) else float("inf")
+    dt = float(np.abs(g.keyframe_translations - c.keyframe_translations).max()) if np.isfinite(dr) else float("inf")
+    log(f"flagship reference (17x200x160): keyframes {g.keyframe_frame_idx.tolist()} (CPU identical: "
+        f"{np.array_equal(g.keyframe_frame_idx, c.keyframe_frame_idx)}), BA runs {g.ba_runs} / {c.ba_runs}, "
+        f"successes {g.successful_frames} / {c.successful_frames}; landmarks / logged observations CUDA "
+        f"{census['cuda']} vs CPU {census['cpu']}; keyframe pose differences: rotation {dr:.3g}, translation {dt:.3g}")
+    if not np.array_equal(g.keyframe_frame_idx, c.keyframe_frame_idx) or g.ba_runs != c.ba_runs:
+        raise AssertionError("flagship: CUDA and CPU runs disagree on keyframes or BA runs")
+    return dict(census=census, rot_diff=dr, trans_diff=dt)
+
+
 def main() -> int:
     import torch
 
@@ -405,12 +617,18 @@ def main() -> int:
 
     kernels, times = kernel_phase(torch, scene.frames)
     compass = compass_phase(torch, scene.frames)
-    launches, vo = vo_phase(torch, scene)
+    vo_launches, vo = vo_phase(torch, scene)
+    reference_phase(torch)
+    launches, flagship = flagship_phase(torch, scene)
+    if launches != vo_launches:
+        raise AssertionError(f"the flagship and VO runs launched the kernels differently: {launches} vs {vo_launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    reference_phase(torch)
+    ba = ba_phase(torch)
+    flagship_ref = flagship_reference_phase(torch)
 
-    log(json.dumps({"vo": vo, "compass": compass, "kernel_times_ms": times, "card": card}))
+    log(json.dumps({"vo": vo, "flagship": flagship, "ba": ba, "flagship_reference": flagship_ref,
+                    "compass": compass, "kernel_times_ms": times, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """Moving state across from the JAX package.
 
-VO has no learned weights; what crosses over is the run's carry and its
-configuration. `carry_from_numpy` takes the JAX carry (OrbFeatures,
+Nothing here has learned weights; what crosses over is state and
+configuration. `carry_from_numpy` takes the JAX VO carry (OrbFeatures,
 KeyframeState, 4x4 pose) as numpy arrays and returns the port's tensors, so
-a run started by the JAX package can be continued here. `config_from_jax`
-maps the field values of any object shaped like the JAX package's VoConfig
-(read by attribute name; nothing of that package is imported) onto the
-port's dataclasses.
+a run started by the JAX package can be continued here; `map_state_from_numpy`
+and `point_cloud_result_from_numpy` do the same for the flagship's map,
+keyframe chain, observation log and trajectory (so `run_global_ba` and the
+map ops can continue JAX state). `config_from_jax` and
+`point_cloud_config_from_jax` map the field values of objects shaped like
+the JAX package's VoConfig / PointCloudConfig (read by attribute name;
+nothing of that package is imported) onto the port's dataclasses.
 """
 
 from __future__ import annotations
@@ -17,11 +20,16 @@ import numpy as np
 import torch
 
 from .feature.detector import OrbConfig, OrbFeatures
+from .mapping.bundle_adjustment import BaConfig
 from .mapping.keyframe import KeyframeConfig, KeyframeState
+from .mapping.map import MapState
+from .odometry.trajectory import Trajectory, TrajectoryPoint
 from .ops.ransac import RansacConfig
+from .pipeline.point_cloud import PointCloudConfig, PointCloudResult
 from .pipeline.vo import VoConfig
 
-__all__ = ["carry_from_numpy", "config_from_jax"]
+__all__ = ["carry_from_numpy", "config_from_jax", "point_cloud_config_from_jax", "map_state_from_numpy",
+           "point_cloud_result_from_numpy"]
 
 _FEATURE_DTYPES = dict(
     xy=torch.float32, response=torch.float32, angle=torch.float32, octave=torch.int32,
@@ -48,9 +56,12 @@ def carry_from_numpy(prev_feats, kf_state, global_pose, device=None):
 # steer TPU code paths: selection is always exact here and the corner kernel
 # is chosen by tensor device. The others tune paths that raise
 # NotImplementedError here when switched on (refine_matches,
-# homography_fallback), so they are read by nothing.
+# homography_fallback), so they are read by nothing. max_obs_per_kf sizes
+# the fused flagship, not ported yet.
 _SKIPPED = {"exact_topk", "corner_backend", "refine_radius", "refine_search", "homography_ratio",
-            "homography_iters"}
+            "homography_iters", "max_obs_per_kf"}
+_NESTED = {"orb": OrbConfig, "ransac": RansacConfig, "keyframe": KeyframeConfig, "vo": VoConfig,
+           "ba": BaConfig}
 
 
 def _convert(cls, obj):
@@ -58,14 +69,54 @@ def _convert(cls, obj):
     extra = {f.name for f in dataclasses.fields(obj)} - known - _SKIPPED
     if extra:
         raise ValueError(f"{type(obj).__name__} fields with no port counterpart: {sorted(extra)}")
-    nested = {"orb": OrbConfig, "ransac": RansacConfig, "keyframe": KeyframeConfig}
     kwargs = {}
     for name in known:
         value = getattr(obj, name)
-        kwargs[name] = _convert(nested[name], value) if name in nested else value
+        kwargs[name] = _convert(_NESTED[name], value) if name in _NESTED else value
     return cls(**kwargs)
 
 
 def config_from_jax(jax_config) -> VoConfig:
     """The port's VoConfig with the field values of a JAX VoConfig."""
     return _convert(VoConfig, jax_config)
+
+
+def point_cloud_config_from_jax(jax_config) -> PointCloudConfig:
+    """The port's PointCloudConfig (nested vo and ba) with the field values
+    of a JAX PointCloudConfig."""
+    return _convert(PointCloudConfig, jax_config)
+
+
+_MAP_DTYPES = dict(positions=torch.float32, descriptors=torch.uint8, observations=torch.int32,
+                   ids=torch.int32, valid=torch.bool, next_id=torch.int32)
+
+
+def map_state_from_numpy(state, device=None) -> MapState:
+    """A MapState-like object of arrays (positions, descriptors,
+    observations, ids, valid, next_id) -> the port's MapState on `device`."""
+    return MapState(**{name: torch.tensor(np.asarray(getattr(state, name)), dtype=dt, device=device)
+                       for name, dt in _MAP_DTYPES.items()})
+
+
+def point_cloud_result_from_numpy(result, device=None) -> PointCloudResult:
+    """A JAX PointCloudResult (read by attribute name) -> the port's: map
+    state on `device`, keyframe chain, observation log as arrays and the
+    reference-style trajectory."""
+    traj = Trajectory()
+    traj.global_pose = np.array(result.trajectory.global_pose, dtype=np.float64)
+    traj.points = [TrajectoryPoint(int(p.frame), [float(v) for v in p.position], float(p.timestamp))
+                   for p in result.trajectory.points]
+    obs_kf, obs_pt, obs_px, obs_id = result.observations
+    observations = (np.asarray(obs_kf, np.int32).reshape(-1), np.asarray(obs_pt, np.int32).reshape(-1),
+                    np.asarray(obs_px, np.float32).reshape(-1, 2), np.asarray(obs_id, np.int32).reshape(-1))
+    return PointCloudResult(
+        map_state=map_state_from_numpy(result.map_state, device),
+        trajectory=traj,
+        keyframe_rotations=np.asarray(result.keyframe_rotations),
+        keyframe_translations=np.asarray(result.keyframe_translations),
+        keyframe_frame_idx=np.asarray(result.keyframe_frame_idx),
+        ba_runs=int(result.ba_runs),
+        total_frames=int(result.total_frames),
+        successful_frames=int(result.successful_frames),
+        observations=observations,
+    )

@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.hamming import hamming_matrix_from_bits
+from ..ops.hamming import descriptor_bits, hamming_matrix_from_bits
 
 __all__ = ["Matches", "FeatureMatcher"]
 
@@ -30,6 +30,19 @@ class FeatureMatcher:
     """Brute-force Hamming matcher, crossCheck=false."""
 
     DIST_FLOOR = 30.0  # max(ratio * min_dist, 30.0)
+
+    def match_descriptors(self, query_packed, train_packed, query_mask=None, train_mask=None) -> Matches:
+        """Best live train match per query from packed descriptors [..., N, 32]
+        and [..., M, 32] uint8; an empty side gives N dead slots."""
+        n, m = query_packed.shape[-2], train_packed.shape[-2]
+        if n == 0 or m == 0:
+            shape, dev = query_packed.shape[:-1], query_packed.device
+            return Matches(torch.zeros(shape, dtype=torch.int64, device=dev),
+                           torch.zeros(shape, dtype=torch.int32, device=dev),
+                           torch.zeros(shape, dtype=torch.bool, device=dev))
+        q_bits, q_pop = descriptor_bits(query_packed)
+        t_bits, t_pop = descriptor_bits(train_packed)
+        return self.match_from_bits(q_bits, q_pop, query_mask, t_bits, t_pop, train_mask)
 
     def match_from_bits(self, q_bits, q_pop, q_mask, t_bits, t_pop, t_mask) -> Matches:
         """Best live train match per query from pre-unpacked bits

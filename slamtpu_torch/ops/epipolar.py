@@ -63,26 +63,78 @@ def _eig3_smallest(s: torch.Tensor) -> torch.Tensor:
     return torch.where(vn > 1e-20, v / torch.clamp(vn, min=1e-30), fallback)
 
 
-def smallest_eigvec(ata: torch.Tensor, iters: int = 2, method: str = "chol"):
+def _inv3x3_adj(a: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form (adjugate) 3x3 inverse."""
+    c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
+    c01 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]
+    c02 = a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]
+    c10 = a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2]
+    c11 = a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0]
+    c12 = a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1]
+    c20 = a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1]
+    c21 = a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2]
+    c22 = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+    det = a[..., 0, 0] * c00 + a[..., 0, 1] * c01 + a[..., 0, 2] * c02
+    adj = torch.stack(
+        [torch.stack([c00, c10, c20], dim=-1), torch.stack([c01, c11, c21], dim=-1),
+         torch.stack([c02, c12, c22], dim=-1)],
+        dim=-2,
+    )
+    return adj / det[..., None, None]
+
+
+def _inv4x4_spd(m: torch.Tensor) -> torch.Tensor:
+    """Batched SPD 4x4 inverse by the block-Schur identity over the 3x3
+    adjugate: m = [[A, b], [b^T, d]], S = d - b^T A^-1 b, u = A^-1 b,
+    inv = [[A^-1 + u u^T / S, -u / S], [-u^T / S, 1 / S]]."""
+    a_inv = _inv3x3_adj(m[..., :3, :3])
+    b = m[..., :3, 3]
+    u = (a_inv @ b[..., None])[..., 0]
+    s_inv = 1.0 / (m[..., 3, 3] - torch.sum(b * u, dim=-1))
+    top_left = a_inv + s_inv[..., None, None] * u[..., :, None] * u[..., None, :]
+    top_right = -s_inv[..., None] * u
+    top = torch.cat([top_left, top_right[..., :, None]], dim=-1)
+    return torch.cat([top, torch.cat([top_right, s_inv[..., None]], dim=-1)[..., None, :]], dim=-2)
+
+
+def smallest_eigvec(ata: torch.Tensor, iters: int = 2, method: str = "chol", block: int = 3):
     """Unit eigenvector of the smallest eigenvalue of PSD [..., D, D].
 
-    method="chol": block inverse iteration through one Cholesky factor of
-    (A + eps tr(A) I) plus a closed-form 3x3 Rayleigh-Ritz step (the block
-    resolves the near-null cluster of small-motion 8-point systems).
+    method="chol": inverse iteration on (A + eps tr(A) I). 4x4 systems use
+    its closed-form inverse, larger ones one Cholesky factor. block=3 (the
+    default) iterates a 3-column subspace and finishes with a closed-form
+    3x3 Rayleigh-Ritz step, which resolves the near-null cluster of
+    small-motion 8-point systems; block=1 iterates the single constant
+    start vector d**-0.5, enough for a 1-D null space (DLT triangulation).
     method="eigh": exact reference path.
     """
     if method == "eigh":
         return torch.linalg.eigh(ata)[1][..., :, 0]
-    block = 3
+    if block not in (1, 3):
+        raise ValueError("block must be 1 or 3")
     d = ata.shape[-1]
     eye = torch.eye(d, dtype=ata.dtype, device=ata.device)
     eps = (1e-6 if ata.dtype == torch.float32 else 1e-12) * ata.diagonal(dim1=-2, dim2=-1).sum(-1)
     eps = torch.where(eps > 0, eps, torch.ones_like(eps))[..., None, None]
-    chol = torch.linalg.cholesky_ex(ata + eps * eye)[0]
+    shifted = ata + eps * eye
+    if d == 4:
+        a_inv = _inv4x4_spd(shifted)
 
-    def solve(rhs):
-        y = torch.linalg.solve_triangular(chol, rhs, upper=False)
-        return torch.linalg.solve_triangular(chol.transpose(-1, -2), y, upper=True)
+        def solve(rhs):
+            return a_inv @ rhs
+    else:
+        chol = torch.linalg.cholesky_ex(shifted)[0]
+
+        def solve(rhs):
+            y = torch.linalg.solve_triangular(chol, rhs, upper=False)
+            return torch.linalg.solve_triangular(chol.transpose(-1, -2), y, upper=True)
+
+    if block == 1:
+        v1 = torch.full((*ata.shape[:-1], 1), d ** -0.5, dtype=ata.dtype, device=ata.device)
+        for _ in range(iters):
+            v1 = solve(v1)
+            v1 = v1 / torch.clamp(torch.linalg.vector_norm(v1, dim=-2, keepdim=True), min=1e-30)
+        return v1[..., 0]
 
     def orthonormalize(v):
         cols = []

@@ -123,3 +123,79 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         extract_patches_batched(torch.zeros((1, 20, 20), device=cuda),
                                 torch.zeros((1, 1, 2), dtype=torch.int32, device=cuda), PATCH_RADIUS)
+
+
+def _ba_problem(seed, n_poses, n_points, dtype):
+    """A seeded BA problem: landmarks seen by a band of poses, noisy start."""
+    from slamtpu_torch.mapping.bundle_adjustment import ObservationBatch
+    from slamtpu_torch.ops.lie import so3_exp
+
+    rng = np.random.default_rng(seed)
+    gt = np.stack([rng.uniform(-2, 2 + 0.4 * n_poses, n_points), rng.uniform(-1.5, 1.5, n_points),
+                   rng.uniform(6, 12, n_points)], 1)
+    rots = so3_exp(torch.from_numpy(rng.normal(scale=0.02, size=(n_poses, 3)))).numpy()
+    trans = np.stack([[-0.4 * i, 0.0, 0.0] for i in range(n_poses)]) + rng.normal(scale=0.02, size=(n_poses, 3))
+    first = rng.integers(0, n_poses, n_points)
+    kf = np.concatenate([np.minimum(first + d, n_poses - 1) for d in range(3)])
+    pt = np.tile(np.arange(n_points), 3)
+    keep = np.unique(kf * n_points + pt, return_index=True)[1]
+    kf, pt = kf[keep], pt[keep]
+    pc = np.einsum("mij,mj->mi", rots[kf], gt[pt]) + trans[kf]
+    px = np.stack([500.0 * pc[:, 0] / pc[:, 2] + 320.0, 500.0 * pc[:, 1] / pc[:, 2] + 240.0], 1)
+    px += rng.normal(scale=0.5, size=px.shape)
+    noisy = so3_exp(torch.from_numpy(rng.normal(scale=0.003, size=(n_poses, 3)))).numpy() @ rots
+    args = [noisy, trans + rng.normal(scale=0.01, size=trans.shape), gt + rng.normal(scale=0.05, size=gt.shape)]
+    obs = ObservationBatch(torch.from_numpy(kf), torch.from_numpy(pt), torch.from_numpy(px).to(dtype),
+                           torch.ones(len(kf), dtype=torch.bool))
+    return [torch.from_numpy(a).to(dtype) for a in args], obs
+
+
+def test_ba_solve_cuda_matches_cpu(cuda):
+    """ba_solve at f64: CUDA (auto = gather, observer bound counted) against
+    the CPU's scatter path, a window-sized and a chunked global problem; a
+    repeated CUDA solve is bit-identical."""
+    from slamtpu_torch.mapping.bundle_adjustment import ObservationBatch, ba_solve
+    from slamtpu_torch.odometry.camera import CameraIntrinsics
+
+    cam = CameraIntrinsics(500.0, 500.0, 320.0, 240.0)
+    for n_poses, n_points, chunk in ((5, 300, 2048), (24, 500, 128)):
+        (rot, trans, pts), obs = _ba_problem(n_poses, n_poses, n_points, torch.float64)
+        mask = torch.ones(n_poses, dtype=torch.bool)
+        mask[:2] = False
+        kw = dict(fix_first_pose=False, pose_mask=mask, landmark_chunk=chunk)
+        ref = ba_solve(cam, rot, trans, pts, obs, **kw)
+        gpu_obs = ObservationBatch(*[x.to(cuda) for x in obs])
+        out = ba_solve(cam, rot.to(cuda), trans.to(cuda), pts.to(cuda), gpu_obs, **kw)
+        again = ba_solve(cam, rot.to(cuda), trans.to(cuda), pts.to(cuda), gpu_obs, **kw)
+        assert out[4] == ref[4] >= 2
+        for a, b, c in zip(out[:4], ref[:4], again[:4]):
+            # Summation order differs (gather vs scatter, card vs host) and LM
+            # carries it: 1e-8 of the largest coordinate.
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-8 * max(float(b.abs().max()), 1.0))
+            assert torch.equal(a, c)
+
+
+def test_run_point_cloud_cuda_matches_cpu(cuda):
+    """A small flagship run on the card against the CPU with the same
+    draws: same keyframes, successes, BA runs; the census within the
+    fused-vs-host bars; each kernel launched once per chunk plus frame 0."""
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.io.synthetic import render_sequence
+    from slamtpu_torch.ops.ransac import RansacConfig
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud
+    from slamtpu_torch.pipeline.vo import VoConfig
+
+    scene = render_sequence(n_frames=17, height=160, width=200, n_points=600, step=0.3, seed=8, textured=True)
+    cfg = PointCloudConfig(vo=VoConfig(orb=OrbConfig(max_features=96, n_levels=4),
+                                       ransac=RansacConfig(iters=16, min_solver="5pt", refine_rounds=30),
+                                       keyframe=PointCloudConfig().vo.keyframe), map_capacity=2048)
+    draws = torch.rand((16, 16, 96), generator=torch.Generator().manual_seed(0))
+    cpu = run_point_cloud(scene.frames, scene.intrinsics, cfg, chunk_size=8, device="cpu", uniforms=draws)
+    before = (corner_response.launches, extract_patches_batched.launches)
+    gpu = run_point_cloud(scene.frames, scene.intrinsics, cfg, chunk_size=8, device=cuda, uniforms=draws.to(cuda))
+    assert (corner_response.launches - before[0], extract_patches_batched.launches - before[1]) == (3, 3)
+    np.testing.assert_array_equal(gpu.keyframe_frame_idx, cpu.keyframe_frame_idx)
+    assert (gpu.ba_runs, gpu.successful_frames) == (cpu.ba_runs, cpu.successful_frames) and cpu.ba_runs > 0
+    n_gpu, n_cpu = int(gpu.map_state.valid.sum()), int(cpu.map_state.valid.sum())
+    assert abs(n_gpu - n_cpu) <= max(3, 0.02 * n_cpu)
+    assert abs(len(gpu.observations[0]) - len(cpu.observations[0])) <= 0.05 * len(cpu.observations[0])

@@ -1,0 +1,360 @@
+"""The flagship slice end to end: the port's run_point_cloud against the
+JAX package's host loop on one clip with the same RANSAC draws and a
+30-round GN polish, without and with windowed BA; the phase-2 ops replayed
+on the JAX run's own inputs; run_global_ba on a JAX result carried over by
+`convert`; byte-identical artifacts; the single-frame clip; options that
+are not ported; the CUDA default.
+
+The clip (17 textured frames of 200x160, seed 8, forward motion) is one on
+which both packages' RANSAC elect the same winner for every pair (ROADMAP
+Queue 3: on other clips a pair can end at another pose with the same
+inlier count).
+
+Measured on this CPU, bars at most 10x unless they are the JAX package's
+own. Without BA: keyframes, successes and keyframe count exact; keyframe
+rotations within 5e-6 (measured 9.4e-7), translations within 1e-4
+(measured 4.2e-5). The map is not bit-identical end to end: the f32 DLT of
+near-parallel rays (parallax < 0.5 degree, two thirds of this clip's
+forward-motion matches) is rounding-chaotic, and on 6 of 16 keyframes one
+or two such points flip their cheirality mask between the packages
+(ROADMAP Queue 3); from there slots shift. So the census (measured: 575 vs
+574 landmarks, 1200 vs 1195 logged observations) is held to the JAX
+package's own fused-vs-host bars (tests/test_point_cloud.py: landmarks
+within max(3, 2 %), observations within 5 %), and the replay test holds
+every phase-2 op exact on identical inputs, the triangulation masks on
+every ray pair with >= 0.5 degree of parallax. With BA: keyframes,
+ba_runs and successes exact, census (measured 573 vs 576, 1221 vs 1220)
+and poses held to the same fused-vs-host bars (rotation 0.036 Frobenius,
+translation 0.051 of the path; measured 0.0056 and 0.0117). Global BA: the
+error before the solve within 8e-7 relative (measured 8.2e-8); at f64
+the global solve agrees to 5e-11 of the largest coordinate (measured
+7.7e-12).
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slamtpu.feature.detector import OrbConfig as JOrbConfig
+from slamtpu.io.synthetic import render_sequence as j_render
+from slamtpu.mapping import bundle_adjustment as jba
+from slamtpu.mapping import map as jmap
+from slamtpu.mapping import triangulation as jtri
+from slamtpu.ops.ransac import RansacConfig as JRansacConfig
+from slamtpu.pipeline import point_cloud as jpc
+from slamtpu.pipeline.vo import VoConfig as JVoConfig
+from slamtpu_torch import convert
+from slamtpu_torch.feature.matcher import FeatureMatcher
+from slamtpu_torch.io.export import depth_to_color_ply, save_ply
+from slamtpu_torch.io.synthetic import render_sequence as t_render
+from slamtpu_torch.mapping import bundle_adjustment as tba
+from slamtpu_torch.mapping.map import Map, map_find_matches, map_insert
+from slamtpu_torch.mapping.triangulation import MapPoint, Triangulator, triangulate_points
+from slamtpu_torch.odometry.camera import CameraIntrinsics
+from slamtpu_torch.pipeline import point_cloud as tpc
+
+torch.set_num_threads(1)
+
+# Jitted: one compile each instead of one per primitive.
+j_triangulate = jax.jit(jtri.triangulate_points)
+j_insert = jax.jit(jmap.map_insert)
+
+SCENE = dict(n_frames=17, height=160, width=200, n_points=600, step=0.3, seed=8, textured=True)
+CHUNK = 8  # divides the 16 pairs: one compiled JAX frontend
+ITERS, FEATURES = 16, 96
+
+
+def _jax_config(ba_interval):
+    return jpc.PointCloudConfig(
+        vo=JVoConfig(orb=JOrbConfig(max_features=FEATURES, n_levels=4),
+                     ransac=JRansacConfig(iters=ITERS, refine_rounds=30),
+                     keyframe=jpc.PointCloudConfig().vo.keyframe),
+        map_capacity=2048, ba_interval=ba_interval)
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """Both JAX runs (BA off, recording phase 2's inputs and outputs, and
+    BA on), the port's runs on the same draws, and the JAX draws."""
+    scene = t_render(**SCENE)
+    jscene = j_render(**SCENE)
+    keys = jax.random.split(jax.random.PRNGKey(0), SCENE["n_frames"] - 1)
+    draws = np.array(jax.vmap(lambda k: jax.random.uniform(k, (ITERS, FEATURES), dtype=jnp.float32))(keys))
+
+    calls = []
+    originals = {name: getattr(jpc, name) for name in ("_match_keyframes", "_triangulate_and_insert", "_reassociate")}
+
+    def recording(name):
+        def wrapper(*args):
+            out = originals[name](*args)
+            calls.append((name, jax.tree_util.tree_map(np.asarray, (args, out))))
+            return out
+        return wrapper
+
+    for name in originals:
+        setattr(jpc, name, recording(name))
+    try:
+        jax_no_ba = jpc.run_point_cloud(jscene.frames, jscene.intrinsics, _jax_config(0), chunk_size=CHUNK)
+    finally:
+        for name, fn in originals.items():
+            setattr(jpc, name, fn)
+    jax_ba = jpc.run_point_cloud(jscene.frames, jscene.intrinsics, _jax_config(5), chunk_size=CHUNK)
+    ours = {bi: tpc.run_point_cloud(scene.frames, scene.intrinsics, convert.point_cloud_config_from_jax(_jax_config(bi)),
+                                    chunk_size=CHUNK, device="cpu", uniforms=draws) for bi in (0, 5)}
+    return dict(scene=scene, jscene=jscene, draws=draws, calls=calls, jax={0: jax_no_ba, 5: jax_ba}, ours=ours)
+
+
+def _census(res):
+    return int(np.asarray(res.map_state.valid).sum()), len(res.observations[0])
+
+
+def _assert_schedule_equal(ours, ref):
+    np.testing.assert_array_equal(ours.keyframe_frame_idx, ref.keyframe_frame_idx)
+    assert ours.ba_runs == ref.ba_runs
+    assert ours.successful_frames == ref.successful_frames
+    assert ours.total_frames == ref.total_frames
+    assert len(ours.trajectory) == len(ref.trajectory)
+
+
+def _assert_census_close(ours, ref):
+    (n_ours, obs_ours), (n_ref, obs_ref) = _census(ours), _census(ref)
+    assert abs(n_ours - n_ref) <= max(3, 0.02 * n_ref), (n_ours, n_ref)
+    assert abs(obs_ours - obs_ref) <= 0.05 * obs_ref, (obs_ours, obs_ref)
+
+
+def test_flagship_without_ba_matches_jax(flagship):
+    ours, ref = flagship["ours"][0], flagship["jax"][0]
+    _assert_schedule_equal(ours, ref)
+    assert ours.ba_runs == 0 and len(ref.keyframe_frame_idx) == 17 and ref.successful_frames == 16
+    np.testing.assert_allclose(ours.keyframe_rotations, ref.keyframe_rotations, rtol=0, atol=5e-6)
+    np.testing.assert_allclose(ours.keyframe_translations, ref.keyframe_translations, rtol=0, atol=1e-4)
+    _assert_census_close(ours, ref)
+    assert _census(ref)[0] > 400
+    # The map's bookkeeping holds on the port's own run: ids are unique and
+    # below next_id, every valid slot was observed at least once.
+    ms = ours.map_state
+    ids = ms.ids[ms.valid].numpy()
+    assert len(np.unique(ids)) == len(ids) and ids.max() < int(ms.next_id)
+    assert (ms.observations[ms.valid] >= 1).all()
+
+
+def _parallax_deg(intr, pose1, pose2, xy1, xy2):
+    """Angle between the two viewing rays of each correspondence, in f64."""
+    k_inv = np.linalg.inv(np.array([[intr.fx, 0, intr.cx], [0, intr.fy, intr.cy], [0, 0, 1.0]]))
+
+    def ray(pose, xy):
+        h = np.concatenate([np.asarray(xy, np.float64), np.ones((len(xy), 1))], 1) @ k_inv.T
+        d = h @ np.asarray(pose[0], np.float64)  # R^T h: the ray in world axes
+        return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    return np.degrees(np.arccos(np.clip(np.sum(ray(pose1, xy1) * ray(pose2, xy2), 1), -1.0, 1.0)))
+
+
+def test_flagship_phase2_replays_jax_exactly(flagship):
+    """Every keyframe's phase-2 ops, fed the JAX run's own inputs: the
+    keyframe re-match and the re-association are exact, triangulation masks
+    agree on every ray pair with at least 0.5 degree of parallax, and
+    inserting the port's triangulation into the JAX run's map gives what
+    the JAX insert gives."""
+    intr = flagship["scene"].intrinsics
+    t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
+    counts = {"_match_keyframes": 0, "_triangulate_and_insert": 0, "_reassociate": 0}
+    for name, (args, out) in flagship["calls"]:
+        counts[name] += 1
+        if name == "_match_keyframes":
+            d1, m1, d2, m2 = map(t, args)
+            m = FeatureMatcher()
+            good = m.filter_good_matches(m.match_descriptors(d1, d2, m1, m2), 2.0)
+            np.testing.assert_array_equal(good.mask.numpy(), out.mask)
+            np.testing.assert_array_equal(good.train_idx.numpy()[out.mask], out.train_idx[out.mask])
+        elif name == "_triangulate_and_insert":
+            state, _, r1, t1, r2, t2, xy1, xy2, desc2, gm = args
+            xyz, valid = triangulate_points(intr, (t(r1), t(t1)), (t(r2), t(t2)), t(xy1), t(xy2))
+            jxyz, jvalid = j_triangulate(flagship["jscene"].intrinsics, (r1, t1), (r2, t2), xy1, xy2)
+            jvalid = np.asarray(jvalid)
+            steep = _parallax_deg(intr, (r1, t1), (r2, t2), xy1, xy2) >= 0.5
+            live = np.asarray(gm) & steep
+            np.testing.assert_array_equal(valid.numpy()[live], jvalid[live])
+            mask = valid & t(gm)
+            inserted = map_insert(convert.map_state_from_numpy(state), xyz, t(desc2), mask)
+            ref = j_insert(jax.tree_util.tree_map(jnp.asarray, state), xyz.numpy(), desc2, mask.numpy())
+            for field in inserted._fields:
+                np.testing.assert_array_equal(getattr(inserted, field).numpy(), np.asarray(getattr(ref, field)),
+                                              err_msg=field)
+        else:
+            state, _, desc, mask, r, tr, xy = args
+            idx, good, dist = map_find_matches(convert.map_state_from_numpy(state), intr, t(desc), t(mask), t(r),
+                                               t(tr), frame_xy=t(xy))
+            _, jidx, jgood, jdist = out
+            np.testing.assert_array_equal(good.numpy(), jgood)
+            np.testing.assert_array_equal(idx.numpy()[jgood], jidx[jgood])
+            np.testing.assert_array_equal((dist.numpy() < 8.0)[jgood], (jdist < 8.0)[jgood])
+    assert counts == {name: 16 for name in counts}
+
+
+def test_flagship_with_ba_matches_jax(flagship):
+    ours, ref = flagship["ours"][5], flagship["jax"][5]
+    _assert_schedule_equal(ours, ref)
+    assert ref.ba_runs == 3
+    _assert_census_close(ours, ref)
+    path = np.linalg.norm(np.diff(ref.keyframe_translations, axis=0), axis=1).sum()
+    assert np.linalg.norm(ours.keyframe_rotations - ref.keyframe_rotations, axis=(1, 2)).max() < 0.036
+    assert np.linalg.norm(ours.keyframe_translations - ref.keyframe_translations, axis=1).max() < 0.051 * path
+    for r in ours.keyframe_rotations:
+        np.testing.assert_allclose(r @ r.T, np.eye(3), atol=1e-5)
+
+
+def _global_problem(jres):
+    """The JAX result's global BA problem, as run_global_ba builds it: every
+    keyframe, the logged observations whose slot still holds the landmark,
+    landmarks compacted to the observed ones."""
+    obs_kf, obs_pt, obs_px, obs_id = (np.asarray(x) for x in jres.observations)
+    ok = np.asarray(jres.map_state.valid)[obs_pt] & (np.asarray(jres.map_state.ids)[obs_pt] == obs_id)
+    uniq, pt_idx = np.unique(obs_pt[ok], return_inverse=True)
+    pts = np.asarray(jres.map_state.positions)[uniq]
+    return (jres.keyframe_rotations, jres.keyframe_translations, pts, obs_kf[ok].astype(np.int64), pt_idx,
+            obs_px.reshape(-1, 2)[ok])
+
+
+def test_global_ba_continues_jax_state(flagship):
+    """run_global_ba on the JAX result, carried over by convert; its error
+    before the solve is the JAX package's on the same problem (f32)."""
+    jres = flagship["jax"][5]
+    intr = flagship["scene"].intrinsics
+    carried = convert.point_cloud_result_from_numpy(jres)
+    new, err_before, err_after = tpc.run_global_ba(carried, intr, device="cpu")
+    rot, trans, pts, kf, pt, px = _global_problem(jres)
+    ref_before = jax.jit(jba.compute_total_error)(
+        flagship["jscene"].intrinsics, *(jnp.asarray(a, jnp.float32) for a in (rot, trans, pts)),
+        jba.ObservationBatch(jnp.asarray(kf, jnp.int32), jnp.asarray(pt, jnp.int32), jnp.asarray(px, jnp.float32),
+                             jnp.ones(len(px), bool)))
+    np.testing.assert_allclose(err_before, float(ref_before), rtol=8e-7)
+    assert np.isfinite(err_after) and err_after <= err_before
+    assert new.ba_runs == jres.ba_runs + 1
+    np.testing.assert_array_equal(new.keyframe_rotations[:2], np.asarray(jres.keyframe_rotations[:2], np.float32))
+    # Only logged, still-valid landmarks can move.
+    moved = (new.map_state.positions != carried.map_state.positions).any(dim=1).numpy()
+    obs_kf, obs_pt, _, obs_id = carried.observations
+    ok = carried.map_state.valid.numpy()[obs_pt] & (carried.map_state.ids.numpy()[obs_pt] == obs_id)
+    assert set(np.nonzero(moved)[0]) <= set(obs_pt[ok])
+
+
+def test_global_problem_at_f64_matches_jax(flagship):
+    """The global solve's numerics, at f64 (in f32 an LM step on this
+    100-unknown system is rounding-sensitive: both packages roll back or
+    stop at different iterations): all keyframes, the logged observations
+    of the JAX BA run, two frozen anchors, dense chunked Schur."""
+    intr = flagship["scene"].intrinsics
+    rot, trans, pts, kf, pt, px = (a.astype(np.float64) if a.dtype.kind == "f" else a
+                                   for a in _global_problem(flagship["jax"][5]))
+    mask = np.ones(len(rot), bool)
+    mask[:2] = False
+    kw = dict(fix_first_pose=False, landmark_chunk=256)
+    t_obs = tba.ObservationBatch(torch.from_numpy(kf), torch.from_numpy(pt), torch.from_numpy(px),
+                                 torch.ones(len(px), dtype=torch.bool))
+    ours = tba.ba_solve(intr, *map(torch.from_numpy, (rot, trans, pts)), t_obs, pose_mask=torch.from_numpy(mask), **kw)
+    ref = jba.ba_solve(flagship["jscene"].intrinsics, jnp.asarray(rot), jnp.asarray(trans), jnp.asarray(pts),
+                       jba.ObservationBatch(jnp.asarray(kf, jnp.int32), jnp.asarray(pt, jnp.int32), jnp.asarray(px),
+                                            jnp.ones(len(px), bool)),
+                       pose_mask=jnp.asarray(mask), **kw)
+    start = tba.compute_total_error(intr, *map(torch.from_numpy, (rot, trans, pts)), t_obs)
+    assert ours[4] == int(ref[4]) and float(ours[3]) < 0.5 * float(start)
+    for a, b in zip(ours[:3], ref[:3]):
+        assert np.abs(a.numpy() - np.asarray(b)).max() <= 5e-11 * np.abs(np.asarray(b)).max()
+
+
+def test_artifacts_are_byte_identical(flagship, tmp_path):
+    """PLY, point-cloud JSON and trajectory JSON of a JAX result carried
+    over by convert, written by both packages."""
+    jres = flagship["jax"][5]
+    carried = convert.point_cloud_result_from_numpy(jres)
+    paths = {}
+    for tag, res in (("jax", jres), ("ours", carried)):
+        d = tmp_path / tag
+        d.mkdir()
+        res.save(str(d / "cloud.ply"), str(d / "cloud.json"), str(d / "traj.json"))
+        paths[tag] = d
+    for name in ("cloud.ply", "cloud.json", "traj.json"):
+        assert (paths["ours"] / name).read_bytes() == (paths["jax"] / name).read_bytes(), name
+    assert len(carried.points()) == _census(jres)[0]
+    assert [p.id for p in carried.stable_points()] == [p.id for p in jres.stable_points()]
+    # The port's own run writes the same formats.
+    flagship["ours"][5].save(*(str(tmp_path / n) for n in ("a.ply", "a.json", "a.txt")))
+    lines = (tmp_path / "a.ply").read_text().splitlines()
+    assert lines[2] == f"element vertex {_census(flagship['ours'][5])[0]}" and lines[9] == "end_header"
+    assert json.loads((tmp_path / "a.txt").read_text())[0] == {"frame": 0, "position": [0.0, 0.0, 0.0], "timestamp": 0.0}
+    save_ply([MapPoint(position=np.array([-0.5, 0.25, 60.0]))], str(tmp_path / "b.ply"))
+    assert (tmp_path / "b.ply").read_text().splitlines()[-1] == "-0.5 0.25 60 255 0 0"
+    assert depth_to_color_ply(25.0) == (0, 255, 0)
+
+
+def test_seeded_draws_are_chunking_invariant(flagship):
+    """Without `uniforms`, each pair draws from its own generator: two
+    chunkings elect the same keyframes, BA runs and census; poses differ
+    only by the rounding of batched solves of another batch size (measured
+    1.0e-7 on rotations, 2.9e-6 on translations; bars 1e-6 and 2.5e-5)."""
+    scene = flagship["scene"]
+    cfg = convert.point_cloud_config_from_jax(_jax_config(5))
+    a = tpc.run_point_cloud(scene.frames, scene.intrinsics, cfg, chunk_size=16, seed=3, device="cpu")
+    b = tpc.run_point_cloud(scene.frames, scene.intrinsics, cfg, chunk_size=5, seed=3, device="cpu")
+    _assert_schedule_equal(a, b)
+    assert _census(a) == _census(b) and a.ba_runs == 3
+    np.testing.assert_allclose(a.keyframe_rotations, b.keyframe_rotations, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(a.keyframe_translations, b.keyframe_translations, rtol=0, atol=2.5e-5)
+
+
+def test_window_ba_refuses_a_repeated_observation():
+    """The gather-mode observer bound (the window size) holds only if a
+    landmark is observed at most once per keyframe; the window refuses a
+    log that breaks it."""
+    cfg = tpc.PointCloudConfig(map_capacity=8)
+    state = tpc.MapState.empty(8)._replace(valid=torch.ones(8, dtype=torch.bool), ids=torch.arange(8, dtype=torch.int32))
+    entry = (np.array([1, 1], np.int32), np.zeros((2, 2), np.float32), np.array([1, 1], np.int32))
+    with pytest.raises(RuntimeError, match="observed twice"):
+        tpc._run_window_ba(state, CameraIntrinsics(100.0, 100.0, 50.0, 50.0), [np.eye(3)] * 2, [np.zeros(3)] * 2,
+                           [entry], cfg)
+
+
+def test_single_frame_clip():
+    scene = t_render(n_frames=1, height=120, width=160, n_points=200, seed=0)
+    cfg = tpc.PointCloudConfig(vo=dataclasses.replace(tpc.PointCloudConfig().vo, orb=dataclasses.replace(
+        tpc.PointCloudConfig().vo.orb, max_features=64, n_levels=4)), map_capacity=256)
+    res = tpc.run_point_cloud(scene.frames, scene.intrinsics, cfg, device="cpu")
+    assert res.total_frames == 1 and res.successful_frames == 0 and res.ba_runs == 0
+    assert list(res.keyframe_frame_idx) == [0] and res.points() == []
+    assert tpc.run_global_ba(res, scene.intrinsics, device="cpu")[1:] == (0.0, 0.0)
+
+
+def test_unported_options_raise(flagship):
+    scene = flagship["scene"]
+    with pytest.raises(NotImplementedError):
+        tpc.run_point_cloud(scene.frames[:2], scene.intrinsics, resume_from="ckpt", device="cpu")
+    with pytest.raises(NotImplementedError):
+        tpc.run_point_cloud(scene.frames[:2], scene.intrinsics, rerun_logger=object(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        flagship["ours"][0].save_checkpoint("ckpt")
+
+
+def test_point_cloud_config_from_jax_maps_every_field():
+    assert convert.point_cloud_config_from_jax(jpc.PointCloudConfig()) == tpc.PointCloudConfig()
+    cfg = convert.point_cloud_config_from_jax(dataclasses.replace(
+        _jax_config(7), ba=jba.BaConfig(max_iterations=3), obs_max_reproj_px=0.0))
+    assert cfg.ba.max_iterations == 3 and cfg.ba_interval == 7 and cfg.obs_max_reproj_px == 0.0
+    assert cfg.vo.ransac.refine_rounds == 30 and cfg.vo.orb.max_features == FEATURES
+
+
+def test_entry_points_default_to_cuda(monkeypatch, flagship):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = flagship["scene"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpc.run_point_cloud(scene.frames[:2], scene.intrinsics)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpc.run_global_ba(flagship["ours"][5], scene.intrinsics)
+    for wrapper in (Triangulator, Map, tba.BundleAdjuster):  # the eager reference-style APIs
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wrapper(scene.intrinsics)

@@ -189,7 +189,8 @@ _SLICE_MODULES = [
     "slamtpu_torch.ops.epipolar", "slamtpu_torch.ops.fast", "slamtpu_torch.ops.five_point",
     "slamtpu_torch.ops.hamming", "slamtpu_torch.ops.harris", "slamtpu_torch.ops.lie",
     "slamtpu_torch.ops.patch", "slamtpu_torch.ops.pyramid", "slamtpu_torch.ops.ransac",
-    "slamtpu_torch.pipeline.vo",
+    "slamtpu_torch.pipeline.vo", "slamtpu_torch.io.export", "slamtpu_torch.mapping.triangulation",
+    "slamtpu_torch.mapping.map", "slamtpu_torch.mapping.bundle_adjustment", "slamtpu_torch.pipeline.point_cloud",
 ]
 
 
