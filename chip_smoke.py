@@ -39,16 +39,28 @@ Phases, each fatal on failure:
                the map's ids and validity (and reports their largest pose
                difference); then run_global_ba on the result, gated on an
                error that is finite and not raised;
-  6. ba       - ba_solve on the card against the CPU at f64: a window-sized
+  6. fused   - runs slamtpu_torch.pipeline.point_cloud.run_point_cloud_fused
+               (the program bench.py's flagship metric times) at the same
+               configuration on the same clip, FUSED_REPEATS times after a
+               warm-up; the host-loop phase's gates, the runs identical, 9
+               launches of each kernel per run; the keyframe schedule equal
+               to the host loop's and the census within the JAX package's
+               fused-vs-host bars (both BA-run counts printed); one BA-off
+               phase-2 chunk must make no synchronizing call (run under
+               torch.cuda.set_sync_debug_mode, every place that synchronizes
+               is printed); the synchronizing calls per run with BA on
+               (fused and host loop); peak device memory, and memory back
+               within 64 MB of where it was once the result is deleted;
+  7. ba       - ba_solve on the card against the CPU at f64: a window-sized
                problem (5 poses, 2048 landmarks, 4096 observations, gather
                mode) and a global-sized one (100 poses, 4096 landmarks, dense
                Schur in chunks of 2048, 2 iterations); times both at f32;
-  7. flagship reference - the flagship on the card against the CPU on a
-               small clip with the same RANSAC draws and a 30-round polish:
-               identical keyframes.
+  8. flagship reference - the flagship on the card against the CPU on a
+               small clip with the same RANSAC draws and a 30-round polish,
+               host loop and fused runner: identical keyframes and BA runs.
 Then it prints one JSON line with every kernel's numbers (launches: the
-flagship run's, equal to the VO run's), the card's name and power limit
-(nvidia-smi), and, last, {"ok": true, "device": {...}}.
+fused flagship run's, equal to the VO and host-loop runs'), the card's
+name and power limit (nvidia-smi), and, last, {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the slamtpu_torch package.
 """
 
@@ -74,6 +86,7 @@ K1_OPS_PER_CANDIDATE = 179
 N_FRAMES = 257  # bench.py's clip
 VO_REPEATS = 5
 FLAGSHIP_REPEATS = 3
+FUSED_REPEATS = 3
 CHUNK = 32
 HEIGHT, WIDTH = 376, 1241
 
@@ -405,32 +418,33 @@ def _check_launches(counts: dict, expected: int, what: str) -> None:
             raise AssertionError(f"{what} launched kernel {name} {n} times, not {expected}")
 
 
-def flagship_phase(torch, scene):
-    """The slice's main path: run_point_cloud on the card at bench.py's
-    flagship configuration, gated as bench.py gates it, run to run
-    agreement, then run_global_ba on the result."""
+def _drive_flagship(torch, scene, runner, repeats: int, what: str):
+    """`repeats` timed runs of a flagship runner at bench.py's flagship
+    configuration after a warm-up on a 33-frame prefix: 9 launches of each
+    kernel per run, bench.py's gates, the runs identical. Returns (first
+    result, launches per run, summary)."""
     import numpy as np
 
     from slamtpu_torch.ops.corner import corner_response
     from slamtpu_torch.ops.patch import extract_patches_batched
-    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_global_ba, run_point_cloud
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig
 
     config = PointCloudConfig()  # == bench.py:687-695
-    run_point_cloud(scene.frames[: CHUNK + 1], scene.intrinsics, config, chunk_size=CHUNK, device="cuda")  # warm-up
+    runner(scene.frames[: CHUNK + 1], scene.intrinsics, config, chunk_size=CHUNK, device="cuda")  # warm-up
     n_pairs = N_FRAMES - 1
     expected = -(-n_pairs // CHUNK) + 1  # one launch per chunk, one for frame 0
     elapsed, runs, launches = [], [], None
-    for _ in range(FLAGSHIP_REPEATS):
+    for _ in range(repeats):
         corner_response.launches = 0
         extract_patches_batched.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = run_point_cloud(scene.frames, scene.intrinsics, config, chunk_size=CHUNK, seed=0, device="cuda")
+        res = runner(scene.frames, scene.intrinsics, config, chunk_size=CHUNK, seed=0, device="cuda")
         torch.cuda.synchronize()
         elapsed.append(time.perf_counter() - t0)
         counts = {"corner_response": corner_response.launches,
                   "extract_patches_batched": extract_patches_batched.launches}
-        _check_launches(counts, expected, "the flagship run")
+        _check_launches(counts, expected, f"the {what} run")
         launches = counts
         runs.append(res)
 
@@ -447,35 +461,139 @@ def flagship_phase(torch, scene):
                 and torch.equal(other.map_state.ids, res.map_state.ids)
                 and torch.equal(other.map_state.valid, res.map_state.valid))
         if not same:
-            raise AssertionError("two flagship runs disagree on keyframes, BA runs or the map's ids/validity")
+            raise AssertionError(f"two {what} runs disagree on keyframes, BA runs or the map's ids/validity")
         pose_diff = max(pose_diff, float(np.abs(other.keyframe_rotations - res.keyframe_rotations).max()),
                         float(np.abs(other.keyframe_translations - res.keyframe_translations).max()))
     fps = sorted(n_pairs / e for e in elapsed)
     kfs = sorted(n_kf / e for e in elapsed)
-    log(f"flagship: {N_FRAMES} frames {WIDTH}x{HEIGHT}, {FLAGSHIP_REPEATS} runs in {[round(e, 4) for e in elapsed]} s "
+    log(f"{what}: {N_FRAMES} frames {WIDTH}x{HEIGHT}, {repeats} runs in {[round(e, 4) for e in elapsed]} s "
         f"-> median {statistics.median(fps):.2f} frames/s (min {fps[0]:.2f}, max {fps[-1]:.2f}; frame pairs over "
         f"wall time, as bench.py counts), {statistics.median(kfs):.2f} keyframes/s (min {kfs[0]:.2f}, max "
         f"{kfs[-1]:.2f}); {n_kf} keyframes, {res.ba_runs} BA runs, landmarks {int(valid.sum())} valid / {stable} "
         f"stable, {len(res.observations[0])} logged observations; success {success:.4f}; rotations orthonormal "
         f"to {ortho:.2e}; largest pose difference between runs {pose_diff}; launches per run {launches}")
     if success < 0.8 or res.ba_runs == 0 or not np.isfinite(rot).all() or ortho > 1e-4:
-        raise AssertionError(f"flagship gates failed: success {success} (>= 0.8), BA runs {res.ba_runs} (> 0), "
+        raise AssertionError(f"{what} gates failed: success {success} (>= 0.8), BA runs {res.ba_runs} (> 0), "
                              f"orthonormality {ortho} (<= 1e-4)")
+    return res, launches, dict(
+        frames=N_FRAMES, fps_median=statistics.median(fps), fps_min=fps[0], fps_max=fps[-1],
+        kf_per_s_median=statistics.median(kfs), kf_per_s_min=kfs[0], kf_per_s_max=kfs[-1], elapsed_s=elapsed,
+        keyframes=n_kf, ba_runs=res.ba_runs, landmarks=int(valid.sum()), stable_landmarks=stable,
+        observations=len(res.observations[0]), success_rate=success, pose_diff_between_runs=pose_diff)
 
+
+def flagship_phase(torch, scene):
+    """The host loop run_point_cloud on the card at bench.py's flagship
+    configuration, then run_global_ba on its result."""
+    import numpy as np
+
+    from slamtpu_torch.pipeline.point_cloud import run_global_ba, run_point_cloud
+
+    res, launches, summary = _drive_flagship(torch, scene, run_point_cloud, FLAGSHIP_REPEATS, "flagship")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, err_before, err_after = run_global_ba(res, scene.intrinsics, device="cuda")
     torch.cuda.synchronize()
     global_s = time.perf_counter() - t0
-    log(f"global BA over {n_kf} keyframes: {global_s:.4f} s, error {err_before} -> {err_after}")
+    log(f"global BA over {summary['keyframes']} keyframes: {global_s:.4f} s, error {err_before} -> {err_after}")
     if not (np.isfinite(err_after) and err_after <= err_before):
         raise AssertionError(f"global BA raised the error or gave a non-finite one: {err_before} -> {err_after}")
-    return launches, dict(frames=N_FRAMES, fps_median=statistics.median(fps), fps_min=fps[0], fps_max=fps[-1],
-                          kf_per_s_median=statistics.median(kfs), kf_per_s_min=kfs[0], kf_per_s_max=kfs[-1],
-                          elapsed_s=elapsed, keyframes=n_kf, ba_runs=res.ba_runs, landmarks=int(valid.sum()),
-                          stable_landmarks=stable, observations=len(res.observations[0]), success_rate=success,
-                          pose_diff_between_runs=pose_diff, global_ba_s=global_s, global_err_before=err_before,
-                          global_err_after=err_after)
+    return res, launches, dict(summary, global_ba_s=global_s, global_err_before=err_before, global_err_after=err_after)
+
+
+def _sync_calls(torch, fn):
+    """Where `fn` makes synchronizing CUDA calls: a Counter of "file:line"
+    of the Python frame that made each (torch.cuda.set_sync_debug_mode
+    "warn" warns once per call)."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                               if "synchroniz" in str(w.message) and "prototype" not in str(w.message))
+
+
+def fused_phase(torch, scene, host):
+    """The fused flagship run_point_cloud_fused (bench.py's flagship metric):
+    the host-loop phase's gates and run-to-run identity, then against the
+    host loop's result `host`, host syncs and device memory."""
+    import gc
+
+    import numpy as np
+
+    from slamtpu_torch.pipeline import point_cloud as pc
+    from slamtpu_torch.pipeline.vo import vo_frontend
+
+    res, launches, summary = _drive_flagship(torch, scene, pc.run_point_cloud_fused, FUSED_REPEATS, "fused flagship")
+
+    # Against the host loop: the same frontend gives the same schedule; the
+    # census within the JAX package's fused-vs-host bars
+    # (tests/test_point_cloud.py). BA counts are printed, not gated: the
+    # fused runner counts a window as run when its ring holds an
+    # observation, the host loop when one still holds its landmark.
+    census = {name: (int(r.map_state.valid.sum()), len(r.observations[0])) for name, r in (("fused", res),
+                                                                                            ("host", host))}
+    (n_f, o_f), (n_h, o_h) = census["fused"], census["host"]
+    log(f"fused vs host loop: keyframes identical {np.array_equal(res.keyframe_frame_idx, host.keyframe_frame_idx)}; "
+        f"landmarks {n_f} vs {n_h}, observations {o_f} vs {o_h}; BA runs {res.ba_runs} vs {host.ba_runs} "
+        f"(difference {res.ba_runs - host.ba_runs})")
+    if not np.array_equal(res.keyframe_frame_idx, host.keyframe_frame_idx):
+        raise AssertionError("the fused runner's keyframe schedule differs from the host loop's")
+    if abs(n_f - n_h) > max(3, 0.02 * n_h) or abs(o_f - o_h) > 0.05 * o_h:
+        raise AssertionError(f"fused vs host-loop census outside max(3, 2 %) landmarks / 5 % observations: {census}")
+
+    # One BA-off phase-2 chunk must make no synchronizing call; is_kf is
+    # handed in as host data, as the runner reads it once per chunk.
+    config = pc.PointCloudConfig(ba_interval=0)
+    feats0 = pc._first_features(scene.frames, config, torch.device("cuda"))
+    carry2 = pc._fused_carry_init(config, feats0, torch.float32)
+    carry1 = (feats0, pc.KeyframeState.initial("cuda"), torch.eye(4, dtype=torch.float64, device="cuda"))
+    block = torch.as_tensor(scene.frames[1 : CHUNK + 1]).cuda()
+    _, fres, feats = vo_frontend(*carry1, block, scene.intrinsics, config.vo, first_step=1)
+    is_kf = fres.is_keyframe.cpu().numpy()
+    where = _sync_calls(torch, lambda: pc._fused_phase2_chunk(carry2, feats, fres.rotations, fres.translations, is_kf,
+                                                              scene.intrinsics, config))
+    log(f"one BA-off phase-2 chunk ({int(is_kf.sum())} keyframes of {CHUNK} steps, prune steps included): "
+        f"synchronizing calls {dict(where) or 'none'} (torch.cuda.set_sync_debug_mode)")
+    if where:
+        raise AssertionError(f"a BA-off phase-2 chunk made synchronizing calls: {dict(where)}")
+
+    cfg = pc.PointCloudConfig()
+    syncs = {name: _sync_calls(torch, lambda fn=fn: fn(scene.frames, scene.intrinsics, cfg, chunk_size=CHUNK,
+                                                       device="cuda"))
+             for name, fn in (("fused", pc.run_point_cloud_fused), ("host", pc.run_point_cloud))}
+    log(f"synchronizing calls per run with BA on: fused {sum(syncs['fused'].values())}, host loop "
+        f"{sum(syncs['host'].values())} ({summary['keyframes']} keyframes, {res.ba_runs} / {host.ba_runs} BA runs); "
+        f"by place: fused {dict(syncs['fused'].most_common(12))}; host loop {dict(syncs['host'].most_common(12))}")
+    syncs = {name: sum(c.values()) for name, c in syncs.items()}
+
+    # Device memory of one run, and none left behind once the result goes.
+    del res
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = pc.run_point_cloud_fused(scene.frames, scene.intrinsics, cfg, chunk_size=CHUNK, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    log(f"fused run device memory: peak {peak / 2**20:.1f} MiB allocated ({(peak - before) / 2**20:.1f} MiB above "
+        f"the {before / 2**20:.1f} MiB held before the run); {left / 2**20:.3f} MiB left once the result is deleted")
+    if left > 64 * 2**20:
+        raise AssertionError(f"the fused run left {left / 2**20:.1f} MiB allocated (bar 64 MiB)")
+    return launches, dict(summary, census=census, host_ba_runs=host.ba_runs, sync_calls_per_run=syncs,
+                          peak_allocated_mib=peak / 2**20, peak_above_start_mib=(peak - before) / 2**20,
+                          left_after_delete_mib=left / 2**20)
 
 
 def _ba_problem(torch, n_poses, n_points, per_point, seed, dtype, device):
@@ -562,13 +680,14 @@ def ba_phase(torch):
 
 def flagship_reference_phase(torch):
     """The flagship on the card against the CPU on a small clip with the
-    same RANSAC draws and a 30-round polish."""
+    same RANSAC draws and a 30-round polish: the fused runner, then the
+    host loop."""
     import numpy as np
 
     from slamtpu_torch.feature.detector import OrbConfig
     from slamtpu_torch.io.synthetic import render_sequence
     from slamtpu_torch.ops.ransac import RansacConfig
-    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud, run_point_cloud_fused
     from slamtpu_torch.pipeline.vo import VoConfig
 
     scene = render_sequence(n_frames=17, height=160, width=200, n_points=600, step=0.3, seed=8, textured=True)
@@ -576,6 +695,16 @@ def flagship_reference_phase(torch):
                                           ransac=RansacConfig(iters=16, min_solver="5pt", refine_rounds=30),
                                           keyframe=PointCloudConfig().vo.keyframe), map_capacity=2048)
     draws = torch.rand((16, 16, 96), generator=torch.Generator().manual_seed(0))
+    fused = {dev: run_point_cloud_fused(scene.frames, scene.intrinsics, config, chunk_size=8, device=dev,
+                                        uniforms=draws.to(dev)) for dev in ("cuda", "cpu")}
+    log(f"fused flagship reference (17x200x160): keyframes identical "
+        f"{np.array_equal(fused['cuda'].keyframe_frame_idx, fused['cpu'].keyframe_frame_idx)}, BA runs "
+        f"{fused['cuda'].ba_runs} / {fused['cpu'].ba_runs}; landmarks / logged observations CUDA "
+        f"{(int(fused['cuda'].map_state.valid.sum()), len(fused['cuda'].observations[0]))} vs CPU "
+        f"{(int(fused['cpu'].map_state.valid.sum()), len(fused['cpu'].observations[0]))}")
+    if (not np.array_equal(fused["cuda"].keyframe_frame_idx, fused["cpu"].keyframe_frame_idx)
+            or fused["cuda"].ba_runs != fused["cpu"].ba_runs):
+        raise AssertionError("fused flagship: CUDA and CPU runs disagree on keyframes or BA runs")
     runs = {dev: run_point_cloud(scene.frames, scene.intrinsics, config, chunk_size=8, device=dev,
                                  uniforms=draws.to(dev)) for dev in ("cuda", "cpu")}
     g, c = runs["cuda"], runs["cpu"]
@@ -601,7 +730,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from slamtpu_torch import _build
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build()
     for name, text in logs.items():
         log(f"--- nvcc {name} ---")
@@ -619,16 +748,21 @@ def main() -> int:
     compass = compass_phase(torch, scene.frames)
     vo_launches, vo = vo_phase(torch, scene)
     reference_phase(torch)
-    launches, flagship = flagship_phase(torch, scene)
-    if launches != vo_launches:
-        raise AssertionError(f"the flagship and VO runs launched the kernels differently: {launches} vs {vo_launches}")
+    host, host_launches, flagship = flagship_phase(torch, scene)
+    launches, fused = fused_phase(torch, scene, host)
+    del host
+    paths = {"vo": vo_launches, "flagship": host_launches, "fused_flagship": launches}
+    if not all(counts == vo_launches for counts in paths.values()):
+        raise AssertionError(f"the main paths launched the kernels differently: {paths}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     ba = ba_phase(torch)
     flagship_ref = flagship_reference_phase(torch)
 
-    log(json.dumps({"vo": vo, "flagship": flagship, "ba": ba, "flagship_reference": flagship_ref,
-                    "compass": compass, "kernel_times_ms": times, "card": card}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
+    log(json.dumps({"vo": vo, "flagship": flagship, "fused_flagship": fused, "ba": ba,
+                    "flagship_reference": flagship_ref, "compass": compass, "kernel_times_ms": times,
+                    "launches_by_path": paths, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ KeyframeState, 4x4 pose) as numpy arrays and returns the port's tensors, so
 a run started by the JAX package can be continued here; `map_state_from_numpy`
 and `point_cloud_result_from_numpy` do the same for the flagship's map,
 keyframe chain, observation log and trajectory (so `run_global_ba` and the
-map ops can continue JAX state). `config_from_jax` and
+map ops can continue JAX state), and `fused_carry_from_numpy` for the
+fused flagship's phase-2 carry. `config_from_jax` and
 `point_cloud_config_from_jax` map the field values of objects shaped like
 the JAX package's VoConfig / PointCloudConfig (read by attribute name;
 nothing of that package is imported) onto the port's dataclasses.
@@ -25,11 +26,11 @@ from .mapping.keyframe import KeyframeConfig, KeyframeState
 from .mapping.map import MapState
 from .odometry.trajectory import Trajectory, TrajectoryPoint
 from .ops.ransac import RansacConfig
-from .pipeline.point_cloud import PointCloudConfig, PointCloudResult
+from .pipeline.point_cloud import PointCloudConfig, PointCloudResult, _FusedCarry
 from .pipeline.vo import VoConfig
 
 __all__ = ["carry_from_numpy", "config_from_jax", "point_cloud_config_from_jax", "map_state_from_numpy",
-           "point_cloud_result_from_numpy"]
+           "point_cloud_result_from_numpy", "fused_carry_from_numpy"]
 
 _FEATURE_DTYPES = dict(
     xy=torch.float32, response=torch.float32, angle=torch.float32, octave=torch.int32,
@@ -56,10 +57,9 @@ def carry_from_numpy(prev_feats, kf_state, global_pose, device=None):
 # steer TPU code paths: selection is always exact here and the corner kernel
 # is chosen by tensor device. The others tune paths that raise
 # NotImplementedError here when switched on (refine_matches,
-# homography_fallback), so they are read by nothing. max_obs_per_kf sizes
-# the fused flagship, not ported yet.
+# homography_fallback), so they are read by nothing.
 _SKIPPED = {"exact_topk", "corner_backend", "refine_radius", "refine_search", "homography_ratio",
-            "homography_iters", "max_obs_per_kf"}
+            "homography_iters"}
 _NESTED = {"orb": OrbConfig, "ransac": RansacConfig, "keyframe": KeyframeConfig, "vo": VoConfig,
            "ba": BaConfig}
 
@@ -120,3 +120,22 @@ def point_cloud_result_from_numpy(result, device=None) -> PointCloudResult:
         successful_frames=int(result.successful_frames),
         observations=observations,
     )
+
+
+def fused_carry_from_numpy(carry, device=None) -> _FusedCarry:
+    """A JAX fused-flagship carry (read by field name, numpy arrays or
+    anything numpy converts) -> the port's _FusedCarry on `device`. Poses
+    keep their dtype (f64 from a JAX run under x64); the bf16 descriptor
+    bits cross as exact 0/1 values."""
+    fields = {}
+    for name in _FusedCarry._fields:
+        value = getattr(carry, name)
+        if name == "map_state":
+            fields[name] = map_state_from_numpy(value, device)
+        elif name == "kf_count":
+            fields[name] = int(np.asarray(value))
+        elif name == "map_bits":
+            fields[name] = torch.tensor(np.asarray(value, np.float32), device=device).to(torch.bfloat16)
+        else:
+            fields[name] = torch.tensor(np.asarray(value), device=device)
+    return _FusedCarry(**fields)

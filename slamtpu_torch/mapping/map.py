@@ -58,10 +58,16 @@ class MapState(NamedTuple):
 
 
 def _set_rows(base: torch.Tensor, slot: torch.Tensor, values) -> torch.Tensor:
-    """base with rows `slot` overwritten by `values`; slot == len(base) is a
-    scratch row that is dropped (several dropped rows may land there)."""
+    """base with rows `slot` overwritten by `values` (a tensor or a Python
+    scalar); slot == len(base) is a scratch row that is dropped (several
+    dropped rows may land there). No host synchronization: a scalar is
+    filled on the device, not copied from the host."""
     scratch = torch.cat([base, torch.zeros_like(base[:1])], dim=0)
-    scratch[slot] = torch.as_tensor(values, dtype=base.dtype, device=base.device)
+    if torch.is_tensor(values):
+        values = values.to(dtype=base.dtype, device=base.device)
+    else:
+        values = torch.full((), values, dtype=base.dtype, device=base.device)
+    scratch[slot] = values
     return scratch[:-1]
 
 

@@ -29,12 +29,13 @@ class CameraIntrinsics:
         return CameraIntrinsics(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
 
     def to_matrix(self, dtype=torch.float32, device=None) -> torch.Tensor:
-        """3x3 calibration matrix K."""
-        return torch.tensor(
-            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
-            dtype=dtype,
-            device=device,
-        )
+        """3x3 calibration matrix K. On CUDA it is copied from pinned host
+        memory without blocking, so building it costs no host
+        synchronization (the fused flagship step builds it per keyframe)."""
+        k = torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]], dtype=dtype)
+        if device is not None and torch.device(device).type == "cuda":
+            return k.pin_memory().to(device, non_blocking=True)
+        return k.to(device)
 
     def project(self, points_cam: torch.Tensor) -> torch.Tensor:
         """Camera-frame 3D points [..., 3] -> pixels [..., 2] (no z <= 0

@@ -175,27 +175,72 @@ def test_ba_solve_cuda_matches_cpu(cuda):
             assert torch.equal(a, c)
 
 
-def test_run_point_cloud_cuda_matches_cpu(cuda):
-    """A small flagship run on the card against the CPU with the same
-    draws: same keyframes, successes, BA runs; the census within the
-    fused-vs-host bars; each kernel launched once per chunk plus frame 0."""
+def _small_flagship():
     from slamtpu_torch.feature.detector import OrbConfig
     from slamtpu_torch.io.synthetic import render_sequence
     from slamtpu_torch.ops.ransac import RansacConfig
-    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig
     from slamtpu_torch.pipeline.vo import VoConfig
 
     scene = render_sequence(n_frames=17, height=160, width=200, n_points=600, step=0.3, seed=8, textured=True)
     cfg = PointCloudConfig(vo=VoConfig(orb=OrbConfig(max_features=96, n_levels=4),
                                        ransac=RansacConfig(iters=16, min_solver="5pt", refine_rounds=30),
                                        keyframe=PointCloudConfig().vo.keyframe), map_capacity=2048)
+    return scene, cfg
+
+
+def _flagship_cuda_matches_cpu(runner, cuda):
+    """A small flagship run on the card against the CPU with the same
+    draws; two card runs identical."""
+    scene, cfg = _small_flagship()
     draws = torch.rand((16, 16, 96), generator=torch.Generator().manual_seed(0))
-    cpu = run_point_cloud(scene.frames, scene.intrinsics, cfg, chunk_size=8, device="cpu", uniforms=draws)
+    cpu = runner(scene.frames, scene.intrinsics, cfg, chunk_size=8, device="cpu", uniforms=draws)
     before = (corner_response.launches, extract_patches_batched.launches)
-    gpu = run_point_cloud(scene.frames, scene.intrinsics, cfg, chunk_size=8, device=cuda, uniforms=draws.to(cuda))
+    gpu = runner(scene.frames, scene.intrinsics, cfg, chunk_size=8, device=cuda, uniforms=draws.to(cuda))
     assert (corner_response.launches - before[0], extract_patches_batched.launches - before[1]) == (3, 3)
     np.testing.assert_array_equal(gpu.keyframe_frame_idx, cpu.keyframe_frame_idx)
     assert (gpu.ba_runs, gpu.successful_frames) == (cpu.ba_runs, cpu.successful_frames) and cpu.ba_runs > 0
     n_gpu, n_cpu = int(gpu.map_state.valid.sum()), int(cpu.map_state.valid.sum())
     assert abs(n_gpu - n_cpu) <= max(3, 0.02 * n_cpu)
     assert abs(len(gpu.observations[0]) - len(cpu.observations[0])) <= 0.05 * len(cpu.observations[0])
+    again = runner(scene.frames, scene.intrinsics, cfg, chunk_size=8, device=cuda, uniforms=draws.to(cuda))
+    assert torch.equal(again.map_state.ids, gpu.map_state.ids) and torch.equal(again.map_state.valid, gpu.map_state.valid)
+    np.testing.assert_array_equal(again.keyframe_rotations, gpu.keyframe_rotations)
+
+
+def test_run_point_cloud_cuda_matches_cpu(cuda):
+    """Same keyframes, successes, BA runs; the census within the
+    fused-vs-host bars; each kernel launched once per chunk plus frame 0."""
+    from slamtpu_torch.pipeline.point_cloud import run_point_cloud
+
+    _flagship_cuda_matches_cpu(run_point_cloud, cuda)
+
+
+def test_run_point_cloud_fused_cuda_matches_cpu(cuda):
+    from slamtpu_torch.pipeline.point_cloud import run_point_cloud_fused
+
+    _flagship_cuda_matches_cpu(run_point_cloud_fused, cuda)
+
+
+def test_fused_phase2_chunk_makes_no_host_sync(cuda):
+    """Without BA, a phase-2 chunk reads nothing back from the card."""
+    import dataclasses
+
+    from slamtpu_torch.pipeline import point_cloud as pc
+    from slamtpu_torch.pipeline.vo import vo_frontend
+
+    scene, cfg = _small_flagship()
+    cfg = dataclasses.replace(cfg, ba_interval=0, prune_interval=3)
+    feats0 = pc._first_features(scene.frames, cfg, cuda)
+    carry1 = (feats0, pc.KeyframeState.initial(cuda), torch.eye(4, dtype=torch.float64, device=cuda))
+    _, res, feats = vo_frontend(*carry1, torch.as_tensor(scene.frames[1:9]).to(cuda), scene.intrinsics, cfg.vo,
+                                first_step=1)
+    is_kf = res.is_keyframe.cpu().numpy()
+    carry2 = pc._fused_carry_init(cfg, feats0, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, outs = pc._fused_phase2_chunk(carry2, feats, res.rotations, res.translations, is_kf, scene.intrinsics, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(is_kf.sum()) >= 4 and outs.obs_mask.shape == (8, cfg.max_obs_per_kf)

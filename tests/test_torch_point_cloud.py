@@ -333,11 +333,10 @@ def test_single_frame_clip():
 def test_unported_options_raise(flagship):
     scene = flagship["scene"]
     with pytest.raises(NotImplementedError):
-        tpc.run_point_cloud(scene.frames[:2], scene.intrinsics, resume_from="ckpt", device="cpu")
-    with pytest.raises(NotImplementedError):
         tpc.run_point_cloud(scene.frames[:2], scene.intrinsics, rerun_logger=object(), device="cpu")
+    cfg = tpc.PointCloudConfig(vo=dataclasses.replace(tpc.PointCloudConfig().vo, refine_matches=True))
     with pytest.raises(NotImplementedError):
-        flagship["ours"][0].save_checkpoint("ckpt")
+        tpc.run_point_cloud(scene.frames[:2], scene.intrinsics, cfg, device="cpu")
 
 
 def test_point_cloud_config_from_jax_maps_every_field():

@@ -1,0 +1,229 @@
+"""The fused flagship runner: the port's run_point_cloud_fused against its
+own host loop and against the JAX package's run_point_cloud_fused, on the
+clip and RANSAC draws of tests/test_torch_point_cloud.py (17 textured frames
+of 200x160, seed 8, chunks of 8, 16 hypotheses, 96 features, a 30-round GN
+polish), with the keyframe chain in f64 as the JAX package runs under x64;
+a step-by-step replay of phase 2 against the JAX package's; the edge cases.
+
+Bars, with what this CPU measured:
+- fused vs host loop, the port alone, BA off: keyframes, map validity and
+  ids, the observation log exact; rotations within 1e-12, translations
+  within 1e-10, the JAX package's own bars (measured 0 and 1.8e-15).
+- fused vs the JAX package's fused runner: keyframes, BA runs and successes
+  exact; the census within the JAX package's fused-vs-host bars, landmarks
+  within max(3, 2 %) and observations within 5 % (measured 574 vs 575 and
+  1195 vs 1200 without BA, 574 vs 574 and 1220 vs 1222 with it); poses
+  within the bars of tests/test_torch_point_cloud.py: without BA rotations
+  5e-6 and translations 1e-4 (measured 9.4e-7 and 4.2e-5), with BA 0.036
+  Frobenius and 0.051 of the path (measured 0.0021 and 0.022). The map is
+  not identical: the f32 DLT of near-parallel rays flips a cheirality mask
+  now and then in either package (ROADMAP Queue 3).
+- the replay (BA every 5 keyframes): every step's triangulation masks exact
+  on rays with >= 0.5 degree of parallax (masks on shallower rays differed
+  on 3 of 16 steps); with the JAX triangulation handed to the port's step,
+  the whole new carry and the step's outputs exact, except f64 poses
+  within 1e-15 of the largest entry (measured 2.2e-16: the chain's matmul
+  rounds once differently) and, on the 3 BA steps, the solved poses within
+  5e-8 (measured 4.3e-9) and f32 positions within 6e-8 (measured 1.2e-8,
+  one f32 rounding).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slamtpu.feature.detector import OrbFeatures as JOrbFeatures
+from slamtpu.io.synthetic import render_sequence as j_render
+from slamtpu.mapping import triangulation as jtri
+from slamtpu.pipeline import point_cloud as jpc
+from slamtpu_torch import convert
+from slamtpu_torch.feature.detector import OrbFeatures
+from slamtpu_torch.io.synthetic import render_sequence as t_render
+from slamtpu_torch.mapping.triangulation import triangulate_points
+from slamtpu_torch.pipeline import point_cloud as tpc
+from slamtpu_torch.pipeline.vo import vo_frontend
+from test_torch_point_cloud import (  # the same clip, draws and bars
+    CHUNK,
+    FEATURES,
+    ITERS,
+    SCENE,
+    _assert_census_close,
+    _assert_schedule_equal,
+    _jax_config,
+    _parallax_deg,
+)
+
+torch.set_num_threads(1)
+
+F64 = torch.float64
+
+
+def _run(scene, ba_interval, draws, runner=tpc.run_point_cloud_fused, **kw):
+    cfg = convert.point_cloud_config_from_jax(_jax_config(ba_interval))
+    if runner is tpc.run_point_cloud_fused:
+        kw.setdefault("pose_dtype", F64)
+    return runner(scene.frames, scene.intrinsics, cfg, chunk_size=CHUNK, device="cpu", uniforms=draws, **kw)
+
+
+@pytest.fixture(scope="module")
+def fused():
+    """The JAX package's fused runs (BA off and on), the port's fused and
+    host-loop runs on the same draws."""
+    scene = t_render(**SCENE)
+    jscene = j_render(**SCENE)
+    keys = jax.random.split(jax.random.PRNGKey(0), SCENE["n_frames"] - 1)
+    draws = np.array(jax.vmap(lambda k: jax.random.uniform(k, (ITERS, FEATURES), dtype=jnp.float32))(keys))
+    jax_runs = {bi: jpc.run_point_cloud_fused(jscene.frames, jscene.intrinsics, _jax_config(bi), chunk_size=CHUNK)
+                for bi in (0, 5)}
+    ours = {bi: _run(scene, bi, draws) for bi in (0, 5)}
+    host = _run(scene, 0, draws, runner=tpc.run_point_cloud)
+    return dict(scene=scene, jscene=jscene, draws=draws, jax=jax_runs, ours=ours, host=host)
+
+
+def test_fused_equals_host_loop_without_ba(fused):
+    """With BA off the two runners share every numerical path."""
+    host, ours = fused["host"], fused["ours"][0]
+    _assert_schedule_equal(ours, host)
+    np.testing.assert_allclose(ours.keyframe_rotations, host.keyframe_rotations, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ours.keyframe_translations, host.keyframe_translations, rtol=0, atol=1e-10)
+    assert torch.equal(ours.map_state.valid, host.map_state.valid)
+    assert torch.equal(ours.map_state.ids, host.map_state.ids)
+    assert len(ours.observations[0]) == len(host.observations[0])
+    for a, b in zip(ours.observations, host.observations):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("ba_interval", [0, 5])
+def test_fused_matches_jax_fused(fused, ba_interval):
+    ours, ref = fused["ours"][ba_interval], fused["jax"][ba_interval]
+    _assert_schedule_equal(ours, ref)
+    _assert_census_close(ours, ref)
+    assert len(ref.keyframe_frame_idx) == 17 and ref.ba_runs == (3 if ba_interval else 0)
+    if ba_interval:
+        path = np.linalg.norm(np.diff(ref.keyframe_translations, axis=0), axis=1).sum()
+        assert np.linalg.norm(ours.keyframe_rotations - ref.keyframe_rotations, axis=(1, 2)).max() < 0.036
+        assert np.linalg.norm(ours.keyframe_translations - ref.keyframe_translations, axis=1).max() < 0.051 * path
+    else:
+        np.testing.assert_allclose(ours.keyframe_rotations, ref.keyframe_rotations, rtol=0, atol=5e-6)
+        np.testing.assert_allclose(ours.keyframe_translations, ref.keyframe_translations, rtol=0, atol=1e-4)
+    for r in ours.keyframe_rotations:
+        np.testing.assert_allclose(r @ r.T, np.eye(3), atol=1e-5)
+    # Map bookkeeping on the port's own run.
+    ms = ours.map_state
+    ids = ms.ids[ms.valid].numpy()
+    assert len(np.unique(ids)) == len(ids) and ids.max() < int(ms.next_id)
+
+
+_POSES = {"prev_rot", "prev_trans", "ring_rot", "ring_trans", "new_rot", "new_trans"}
+_SOLVED = {"prev_rot", "prev_trans", "ring_rot", "ring_trans"}  # what a BA step writes, besides positions
+
+
+def _assert_same(ours, ref, name, ba_step):
+    """Exact, except f64 poses (1e-15 of the largest entry: the chain's
+    matmul rounds once differently) and what a BA step solves (poses 5e-8,
+    f32 positions 6e-8: one f32 rounding)."""
+    ours = ours.float().numpy() if ours.dtype == torch.bfloat16 else ours.numpy()
+    ref = np.asarray(ref, ours.dtype)
+    bar = 0.0
+    if ba_step and name == "positions":
+        bar = 6e-8
+    elif ba_step and name in _SOLVED:
+        bar = 5e-8
+    elif name in _POSES:
+        bar = 1e-15
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=bar * max(np.abs(ref).max(), 1.0), err_msg=name)
+
+
+def test_phase2_replays_jax_step_by_step(fused, monkeypatch):
+    """The JAX package's _fused_phase2_chunk one step at a time (BA every 5
+    keyframes) on the frontend outputs of the port's run; before each step
+    its carry crosses over by convert.fused_carry_from_numpy and the port's
+    step runs on the same inputs, with the JAX package's triangulation
+    handed in (the f32 DLT's masks are checked on their own)."""
+    jscene, scene = fused["jscene"], fused["scene"]
+    jcfg = _jax_config(5)
+    tcfg = convert.point_cloud_config_from_jax(jcfg)
+    j_tri = jax.jit(jtri.triangulate_points)
+    intr = scene.intrinsics
+    tri = {}
+
+    def triangulate(_, pose1, pose2, xy1, xy2):
+        args = [x.numpy() for x in (*pose1, *pose2, xy1, xy2)]
+        jxyz, jvalid = j_tri(jscene.intrinsics, tuple(args[:2]), tuple(args[2:4]), *args[4:])
+        tri.update(args=args, ours=triangulate_points(intr, pose1, pose2, xy1, xy2)[1].numpy(),
+                   ref=np.asarray(jvalid))
+        return torch.tensor(np.asarray(jxyz)), torch.tensor(np.asarray(jvalid))
+
+    monkeypatch.setattr(tpc, "triangulate_points", triangulate)
+    feats0 = tpc._first_features(scene.frames, tcfg, "cpu")
+    jcarry = jpc._fused_carry_init(jcfg, JOrbFeatures(*[jnp.asarray(x.numpy()) for x in feats0]), jnp.float64)
+    carry1 = (feats0, tpc.KeyframeState.initial("cpu"), torch.eye(4, dtype=F64))
+    steps = flipped = ba_steps = 0
+    for start in range(0, SCENE["n_frames"] - 1, CHUNK):
+        carry1, res, feats = vo_frontend(*carry1, torch.from_numpy(scene.frames[start + 1 : start + CHUNK + 1]), intr,
+                                         tcfg.vo, uniforms=torch.from_numpy(fused["draws"][start : start + CHUNK]))
+        is_kf = res.is_keyframe.numpy()
+        for j in range(CHUNK):
+            step = [x[j : j + 1] for x in (*feats, res.rotations, res.translations)]
+            before = jax.tree_util.tree_map(np.asarray, jcarry)
+            jcarry, jout = jpc._fused_phase2_chunk(jcarry, JOrbFeatures(*[jnp.asarray(x.numpy()) for x in step[:7]]),
+                                                   *[jnp.asarray(x.numpy()) for x in step[7:]],
+                                                   jnp.asarray(is_kf[j : j + 1]), jscene.intrinsics, jcfg)
+            tcarry, tout = tpc._fused_phase2_chunk(convert.fused_carry_from_numpy(before), OrbFeatures(*step[:7]),
+                                                   *step[7:], is_kf[j : j + 1], intr, tcfg)
+            if is_kf[j]:
+                steps += 1
+                # The port's triangulation: masks exact on rays with >= 0.5
+                # degree of parallax.
+                a = tri["args"]
+                steep = _parallax_deg(intr, a[0:2], a[2:4], a[4], a[5]) >= 0.5
+                np.testing.assert_array_equal(tri["ours"][steep], tri["ref"][steep])
+                flipped += bool((tri["ours"] != tri["ref"]).any())
+            ba_step = bool(np.asarray(jout.ba_flag[0]))
+            ba_steps += ba_step
+            assert tcarry.kf_count == int(jcarry.kf_count)
+            for name in tpc._FusedCarry._fields:
+                if name == "map_state":
+                    for field in tcarry.map_state._fields:
+                        _assert_same(getattr(tcarry.map_state, field), getattr(jcarry.map_state, field), field,
+                                     ba_step)
+                elif name != "kf_count":
+                    _assert_same(getattr(tcarry, name), getattr(jcarry, name), name, ba_step)
+            for name in tpc._FusedStepOut._fields:
+                _assert_same(getattr(tout, name), getattr(jout, name), name, ba_step)
+    assert steps == 16 and ba_steps == 3 and flipped <= 8  # measured 3
+
+
+def test_single_frame_clip():
+    """No pairs: keyframe 0 only, an empty map and log."""
+    scene = t_render(n_frames=1, height=120, width=160, n_points=200, seed=0)
+    cfg = tpc.PointCloudConfig(vo=dataclasses.replace(tpc.PointCloudConfig().vo, orb=dataclasses.replace(
+        tpc.PointCloudConfig().vo.orb, max_features=64, n_levels=4)), map_capacity=256)
+    res = tpc.run_point_cloud_fused(scene.frames, scene.intrinsics, cfg, device="cpu")
+    assert res.total_frames == 1 and res.successful_frames == 0 and res.ba_runs == 0
+    assert list(res.keyframe_frame_idx) == [0] and res.points() == []
+    assert all(len(a) == 0 for a in res.observations)
+    np.testing.assert_array_equal(res.keyframe_rotations, np.eye(3)[None])
+
+
+def test_refine_matches_raises(fused):
+    scene = fused["scene"]
+    cfg = tpc.PointCloudConfig(vo=dataclasses.replace(tpc.PointCloudConfig().vo, refine_matches=True))
+    with pytest.raises(NotImplementedError):
+        tpc.run_point_cloud_fused(scene.frames[:2], scene.intrinsics, cfg, device="cpu")
+
+
+def test_config_maps_max_obs_per_kf():
+    assert convert.point_cloud_config_from_jax(dataclasses.replace(_jax_config(5), max_obs_per_kf=7)).max_obs_per_kf == 7
+    assert tpc.PointCloudConfig().max_obs_per_kf == jpc.PointCloudConfig().max_obs_per_kf == 1024
+
+
+def test_fused_defaults_to_cuda(monkeypatch, fused):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = fused["scene"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpc.run_point_cloud_fused(scene.frames[:2], scene.intrinsics)

@@ -191,6 +191,7 @@ _SLICE_MODULES = [
     "slamtpu_torch.ops.patch", "slamtpu_torch.ops.pyramid", "slamtpu_torch.ops.ransac",
     "slamtpu_torch.pipeline.vo", "slamtpu_torch.io.export", "slamtpu_torch.mapping.triangulation",
     "slamtpu_torch.mapping.map", "slamtpu_torch.mapping.bundle_adjustment", "slamtpu_torch.pipeline.point_cloud",
+    "slamtpu_torch.io.checkpoint",
 ]
 
 

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's flagship goes, on one GPU.
 
-    python3 tools/profile_torch_point_cloud.py [--frames 257] [--chunk 32]
+    python3 tools/profile_torch_point_cloud.py [--fused] [--frames 257] [--chunk 32]
 
-Runs slamtpu_torch.pipeline.point_cloud.run_point_cloud at bench.py's
-flagship configuration (PointCloudConfig()) on bench.py's rendered scene
-(1241x376, KITTI intrinsics, 4000 landmarks, step 0.8, seed 0) three times
-after a warm-up:
+Runs slamtpu_torch.pipeline.point_cloud.run_point_cloud (the host loop), or
+run_point_cloud_fused with --fused, at bench.py's flagship configuration
+(PointCloudConfig()) on bench.py's rendered scene (1241x376, KITTI
+intrinsics, 4000 landmarks, step 0.8, seed 0) three times after a warm-up:
   1. plain, host clock around the whole run -> frames/s (frame pairs over
      wall time, as bench.py counts) and keyframes/s;
-  2. with each stage wrapped in a synchronizing timer: frame-0 detect,
-     frontend (VO chunks), keyframe match, triangulate + insert,
+  2. with each stage wrapped in a synchronizing timer; host loop: frame-0
+     detect, frontend (VO chunks), keyframe match, triangulate + insert,
      re-associate, observation log (the device -> host copies), window BA,
-     prune; "other" is the rest of the host loop (the synchronizations cost
-     a little time of their own); also the keyframe at which the map
-     first has no free slot;
+     prune; fused: frame-0 detect, frontend, keyframe match, triangulate,
+     insert, re-associate, window BA, prune, free-table rebuild, host
+     reconstruction (chain and log from the fetched step outputs). "other"
+     is the rest of the run (for the fused runner: ring and descriptor-bit
+     updates, observation compaction, stacking and the final fetch; the
+     synchronizations cost a little time of their own); also the keyframe
+     at which the map first has no free slot;
   3. under torch.profiler -> device busy time (sum of kernel durations),
      its share of the wall time, kernel launches, and the kernels that take
      the most device time.
@@ -37,12 +41,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 STAGES = dict(detect_and_compute="frame-0 detect", vo_frontend="frontend", _match_keyframes="keyframe match",
               _triangulate_and_insert="triangulate+insert", _reassociate="re-associate",
               _log_observations="observation log", _run_window_ba="window BA", map_prune="prune")
+FUSED_STAGES = dict(detect_and_compute="frame-0 detect", vo_frontend="frontend", _match_keyframes="keyframe match",
+                    triangulate_points="triangulate", _map_insert_at="insert", _reassociate="re-associate",
+                    _fused_window_ba="window BA", map_prune="prune", _free_table="free-table rebuild",
+                    _phase2_host_reconstruct="host reconstruction")
 
 
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--fused", action="store_true", help="profile run_point_cloud_fused instead of the host loop")
     ap.add_argument("--frames", type=int, default=257)
     ap.add_argument("--chunk", type=int, default=32)
     args = ap.parse_args()
@@ -59,9 +68,11 @@ def main() -> int:
     scene = render_sequence(n_frames=args.frames, height=376, width=1241, n_points=4000, step=0.8,
                             intrinsics=CameraIntrinsics.kitti(), seed=0, noise=2.0)
     config = pc.PointCloudConfig()
+    runner, stages_of = (pc.run_point_cloud_fused, FUSED_STAGES) if args.fused else (pc.run_point_cloud, STAGES)
+    card = f"{card}; {runner.__name__}"
 
     def run():
-        out = pc.run_point_cloud(scene.frames, scene.intrinsics, config, chunk_size=args.chunk, device="cuda")
+        out = runner(scene.frames, scene.intrinsics, config, chunk_size=args.chunk, device="cuda")
         torch.cuda.synchronize()
         return out
 
@@ -89,18 +100,19 @@ def main() -> int:
             return out
         return wrapper
 
-    originals = {attr: getattr(pc, attr) for attr in STAGES}
-    for attr, name in STAGES.items():
+    originals = {attr: getattr(pc, attr) for attr in stages_of}
+    for attr, name in stages_of.items():
         setattr(pc, attr, timed(name, originals[attr]))
     sizes = []  # map size after each keyframe's insert
-    timed_insert = pc._triangulate_and_insert
+    insert_attr = "_map_insert_at" if args.fused else "_triangulate_and_insert"
+    timed_insert = getattr(pc, insert_attr)
 
     def insert_and_count(*a):
-        state = timed_insert(*a)
-        sizes.append(int(state.size()))
-        return state
+        out = timed_insert(*a)
+        sizes.append(int((out[0] if args.fused else out).size()))
+        return out
 
-    pc._triangulate_and_insert = insert_and_count
+    setattr(pc, insert_attr, insert_and_count)
     try:
         t0 = time.perf_counter()
         run()
