@@ -57,10 +57,26 @@ Phases, each fatal on failure:
                Schur in chunks of 2048, 2 iterations); times both at f32;
   8. flagship reference - the flagship on the card against the CPU on a
                small clip with the same RANSAC draws and a 30-round polish,
-               host loop and fused runner: identical keyframes and BA runs.
+               host loop and fused runner: identical keyframes and BA runs;
+  9. depth   - MonoDepth2 at bench.py's configuration (random weights from a
+               seed, 640x192, scale-0 disparity, fed three distinct clips of
+               the rendered clip's frames from frame 1, gray repeated to RGB,
+               one warm-up): ms/frame (median, min, max) at f32 (TF32 off)
+               and bf16, at batch 8 (bench.py's) and 64 (the CLI's default);
+               GFLOP/frame counted from the convolutions' shapes, TFLOP/s
+               against the card's peaks, peak memory at batch 64; gates on
+               the output (shape, finite, inside (0, 1)), bf16 against f32
+               (max |d| < 0.05, correlation > 0.97) and the card against the
+               CPU on one full-size frame (atol 5e-4); then run_depth_mapping
+               on the 257-frame clip with the CLI's --fuse-vo depth function
+               (stride 8, keyframe stride 2): 9 launches of each kernel, a
+               finite non-empty cloud, VO success >= 0.8; and on a small
+               rendered clip with its true depth maps, median relative error
+               of the cloud < 0.15 (tests/test_depth_mapping.py's bar).
 Then it prints one JSON line with every kernel's numbers (launches: the
-fused flagship run's, equal to the VO and host-loop runs'), the card's
-name and power limit (nvidia-smi), and, last, {"ok": true, "device": {...}}.
+fused flagship run's, equal to the VO, host-loop and depth-mapping runs'),
+the card's name and power limit (nvidia-smi), and, last, {"ok": true,
+"device": {...}}.
 Exits non-zero without a CUDA device or without the slamtpu_torch package.
 """
 
@@ -75,6 +91,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 # f32 operations K1's work needs on these inputs: per output pixel, the
 # compass pre-test 12 (4 differences, 8 compares), Sobel 14, gradient
 # products 3, vertical and horizontal 7-sums of three products 36, Harris 7,
@@ -87,6 +104,7 @@ N_FRAMES = 257  # bench.py's clip
 VO_REPEATS = 5
 FLAGSHIP_REPEATS = 3
 FUSED_REPEATS = 3
+DEPTH_BATCHES = (8, 64)  # bench.py's, the CLI's default on CUDA
 CHUNK = 32
 HEIGHT, WIDTH = 376, 1241
 
@@ -721,6 +739,142 @@ def flagship_reference_phase(torch):
     return dict(census=census, rot_diff=dr, trans_diff=dt)
 
 
+def conv_flop_per_frame(torch, model) -> float:
+    """2 x the multiply-adds of every convolution MonoDepth2's forward runs
+    at the model's size, from the output shapes of a pass on the meta device
+    (no data, no compute). Resize, BatchNorm, activations and the skip
+    concatenations are not counted."""
+    import copy
+
+    macs = []
+    enc, dec = copy.deepcopy(model.encoder).to("meta"), copy.deepcopy(model.decoder).to("meta")
+    hooks = [m.register_forward_hook(lambda m, i, o: macs.append(o.numel() * m.weight[0].numel()))
+             for mod in (enc, dec) for m in mod.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        dec(enc(torch.zeros((1, 3, model.height, model.width), device="meta")), scales=(0,))
+    for h in hooks:
+        h.remove()
+    return 2.0 * sum(macs)
+
+
+def depth_phase(torch, scene):
+    """MonoDepth2 at bench.py's configuration on the card, then the
+    depth-mapping pipeline on the clip and on ground-truth depth."""
+    import numpy as np
+
+    from slamtpu_torch.cli.depth_estimation import depth_fn_for
+    from slamtpu_torch.depth.monodepth2 import MonoDepth2
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.io.synthetic import render_sequence
+    from slamtpu_torch.ops.corner import corner_response
+    from slamtpu_torch.ops.patch import extract_patches_batched
+    from slamtpu_torch.ops.ransac import RansacConfig
+    from slamtpu_torch.pipeline.depth_mapping import run_depth_mapping
+    from slamtpu_torch.pipeline.vo import VoConfig
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on after importing slamtpu_torch")
+    models = {"f32": MonoDepth2(seed=0, device="cuda")}
+    weights = dict(encoder=models["f32"].encoder.state_dict(), decoder=models["f32"].decoder.state_dict())
+    models["bf16"] = MonoDepth2(**weights, compute_dtype=torch.bfloat16, device="cuda")
+    flop = conv_flop_per_frame(torch, models["f32"])
+    peaks = {"f32": FP32_FLOP_PER_S, "bf16": BF16_FLOP_PER_S}
+
+    out, timing = {}, {}
+    for batch in DEPTH_BATCHES:
+        # Three distinct clips from frame 1, gray repeated to RGB, f32 on the
+        # card (bench.py:612-617).
+        clips = [torch.as_tensor(scene.frames[1 + i * batch : 1 + (i + 1) * batch]).cuda()[..., None]
+                 .expand(-1, -1, -1, 3).float().contiguous() for i in range(3)]
+        for name, model in models.items():
+            model._forward(clips[0] + 0.25)  # warm-up on a perturbed clip
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            samples = []
+            for _ in range(3):
+                for clip in clips:
+                    t0 = time.perf_counter()
+                    disp = model._forward(clip)
+                    torch.cuda.synchronize()
+                    samples.append((time.perf_counter() - t0) * 1e3 / batch)
+            peak = torch.cuda.max_memory_allocated()
+            samples.sort()
+            ms = statistics.median(samples)
+            rate = flop / (ms * 1e-3)
+            timing[f"{name}_batch{batch}"] = dict(
+                ms_per_frame=ms, ms_min=samples[0], ms_max=samples[-1], samples=samples, tflop_per_s=rate / 1e12,
+                peak_share=rate / peaks[name], peak_allocated_mib=peak / 2**20,
+                peak_above_inputs_mib=(peak - held) / 2**20)
+            log(f"MonoDepth2 {name} batch {batch} ({model.width}x{model.height} from {WIDTH}x{HEIGHT}): median "
+                f"{ms:.4f} ms/frame (min {samples[0]:.4f}, max {samples[-1]:.4f}, {len(samples)} calls) = "
+                f"{rate / 1e12:.2f} TFLOP/s "
+                f"at {flop / 1e9:.3f} GFLOP/frame, {rate / peaks[name]:.2%} of the {peaks[name] / 1e12:.0f} TFLOP/s "
+                f"{name} peak; peak memory {peak / 2**20:.1f} MiB allocated ({(peak - held) / 2**20:.1f} MiB above "
+                f"the inputs)")
+            if batch == DEPTH_BATCHES[0]:
+                out[name] = disp
+        del clips
+
+    # Gates: the output, bf16 against f32, the card against the CPU.
+    d32, d16 = out["f32"], out["bf16"]
+    shape = (DEPTH_BATCHES[0], models["f32"].height, models["f32"].width)
+    for name, d in out.items():
+        if d.shape != shape or not bool(torch.isfinite(d).all()) or not bool(((d > 0) & (d < 1)).all()):
+            raise AssertionError(f"MonoDepth2 {name}: output {tuple(d.shape)} not finite inside (0, 1)")
+    diff16 = float((d16 - d32).abs().max())
+    corr = float(np.corrcoef(d32.cpu().numpy().ravel(), d16.cpu().numpy().ravel())[0, 1])
+    cpu = MonoDepth2(**weights, device="cpu")
+    frame = scene.frames[1]
+    t0 = time.perf_counter()
+    ref = cpu.predict_raw(frame)
+    cpu_s = time.perf_counter() - t0
+    diff_cpu = float((models["f32"].predict_raw(frame).cpu() - ref).abs().max())
+    log(f"MonoDepth2 gates: outputs {list(shape)} finite inside (0, 1); disparity std {float(d32.std()):.4f}; "
+        f"bf16 vs f32 max |d| {diff16:.4g} (bar 0.05), correlation {corr:.6f} (bar 0.97); card f32 vs CPU on "
+        f"one {WIDTH}x{HEIGHT} frame max |d| {diff_cpu:.3g} (bar 5e-4; CPU {cpu_s:.2f} s)")
+    if diff16 >= 0.05 or corr <= 0.97 or diff_cpu > 5e-4:
+        raise AssertionError("MonoDepth2: bf16 vs f32 or card vs CPU outside the bars")
+
+    # The depth-mapping path on the clip, with the CLI's --fuse-vo depth function.
+    depth_fn = depth_fn_for(models["bf16"], HEIGHT, WIDTH)
+    run_depth_mapping(scene.frames[: CHUNK + 1], scene.intrinsics, depth_fn, stride=8, device="cuda")  # warm-up
+    corner_response.launches = 0
+    extract_patches_batched.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_depth_mapping(scene.frames, scene.intrinsics, depth_fn, stride=8, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {"corner_response": corner_response.launches,
+                "extract_patches_batched": extract_patches_batched.launches}
+    _check_launches(launches, -(-N_FRAMES // CHUNK), "the depth-mapping run")
+    success = res.vo_run.successful_frames / (N_FRAMES - 1)
+    n_kf = len(res.keyframe_frame_idx)
+    log(f"depth mapping ({N_FRAMES} frames {WIDTH}x{HEIGHT}, bf16 MonoDepth2, stride 8, keyframe stride 2): "
+        f"{wall:.4f} s, {len(res.points)} points from {-(-n_kf // 2)} of {n_kf} keyframes; VO success {success:.4f}; "
+        f"launches {launches}")
+    if not len(res.points) or not np.isfinite(res.points).all() or success < 0.8:
+        raise AssertionError(f"depth mapping gates failed: {len(res.points)} points, finite "
+                             f"{bool(np.isfinite(res.points).all())}, success {success} (>= 0.8)")
+
+    # Ground truth: the renderer's depth maps in place of the network.
+    gt = render_sequence(n_frames=12, height=192, width=256, n_points=500, step=1.0, seed=6, render_depth=True)
+    lookup = {gt.frames[i].tobytes(): gt.depths[i] for i in range(len(gt.frames))}
+    cfg = VoConfig(orb=OrbConfig(max_features=250), ransac=RansacConfig(iters=200))
+    res_gt = run_depth_mapping(gt.frames, gt.intrinsics, lambda f: lookup[np.asarray(f).tobytes()], vo_config=cfg,
+                               stride=6, keyframe_stride=2, device="cuda")
+    d = np.linalg.norm(res_gt.points[:, None, :] - gt.points[None, :, :], axis=-1)
+    rel = float(np.median(d.min(axis=1) / np.maximum(np.linalg.norm(res_gt.points, axis=1), 1.0)))
+    log(f"depth mapping on true depth (12x256x192): {len(res_gt.points)} points, median relative error {rel:.4f} "
+        f"(bar 0.15)")
+    if len(res_gt.points) <= 300 or rel >= 0.15:
+        raise AssertionError(f"depth mapping on true depth: {len(res_gt.points)} points, median error {rel}")
+    return launches, dict(gflop_per_frame=flop / 1e9, timing=timing, bf16_vs_f32_max_abs=diff16,
+                          bf16_vs_f32_corr=corr, cuda_vs_cpu_max_abs=diff_cpu, mapping_wall_s=wall,
+                          mapping_points=len(res.points), mapping_keyframes=n_kf, mapping_vo_success=success,
+                          gt_points=len(res_gt.points), gt_median_rel_err=rel)
+
+
 def main() -> int:
     import torch
 
@@ -751,7 +905,9 @@ def main() -> int:
     host, host_launches, flagship = flagship_phase(torch, scene)
     launches, fused = fused_phase(torch, scene, host)
     del host
-    paths = {"vo": vo_launches, "flagship": host_launches, "fused_flagship": launches}
+    depth_launches, depth = depth_phase(torch, scene)
+    paths = {"vo": vo_launches, "flagship": host_launches, "fused_flagship": launches,
+             "depth_mapping": depth_launches}
     if not all(counts == vo_launches for counts in paths.values()):
         raise AssertionError(f"the main paths launched the kernels differently: {paths}")
     for k in kernels:
@@ -760,7 +916,7 @@ def main() -> int:
     flagship_ref = flagship_reference_phase(torch)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
-    log(json.dumps({"vo": vo, "flagship": flagship, "fused_flagship": fused, "ba": ba,
+    log(json.dumps({"vo": vo, "flagship": flagship, "fused_flagship": fused, "depth": depth, "ba": ba,
                     "flagship_reference": flagship_ref, "compass": compass, "kernel_times_ms": times,
                     "launches_by_path": paths, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)

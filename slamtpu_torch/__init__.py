@@ -1,26 +1,31 @@
 """slamtpu_torch — the PyTorch/CUDA port of slamtpu for one NVIDIA H100.
 
 The JAX package `slamtpu/` is the reference; this package mirrors its layout
-(`feature/`, `ops/`, `odometry/`, `mapping/`, `pipeline/`, `io/`) so each
-module's counterpart is found under the same path. It imports torch and
-numpy only — never jax and nothing of `slamtpu`.
+(`feature/`, `ops/`, `odometry/`, `mapping/`, `models/`, `depth/`,
+`pipeline/`, `io/`, `cli/`) so each module's counterpart is found under the
+same path. It imports torch and numpy only — never jax and nothing of
+`slamtpu`.
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`). Kernel wrappers choose by the device of the tensor they
 are given: a CUDA tensor launches the hand-written Hopper kernel (or
 raises), a CPU tensor runs the plain PyTorch version. There is no fallback.
 
-Full fp32 matmuls matter here: the bilinear pyramid resize is exact only
-without TF32 (ops/pyramid.py), and the epipolar algebra needs every digit
-(ops/epipolar.py). Importing the package therefore sets
-`torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's default, made
-explicit). No convolution runs here, so cuDNN's TF32 switch is left alone;
-the blur is written as shifted-slice sums for that reason.
+Full fp32 matmuls and convolutions matter here: the bilinear pyramid resize
+is exact only without TF32 (ops/pyramid.py), the epipolar algebra needs
+every digit (ops/epipolar.py), and MonoDepth2's f32 mode must compute what
+the JAX package's f32 model computes (depth/monodepth2.py). PyTorch runs
+cuDNN's f32 convolutions in TF32 (a 10-bit mantissa) by default, so
+importing the package sets both `torch.backends.cuda.matmul.allow_tf32`
+(PyTorch's default, made explicit) and `torch.backends.cudnn.allow_tf32`
+to False. Reduced precision is asked for explicitly, as MonoDepth2's bf16
+mode is.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["resolve_device"]
 

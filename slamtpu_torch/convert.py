@@ -1,6 +1,7 @@
-"""Moving state across from the JAX package.
+"""Moving state and weights across from the JAX package.
 
-Nothing here has learned weights; what crosses over is state and
+`monodepth2_from_flax` carries MonoDepth2's Flax variable trees into the
+port's state dicts; everything else that crosses over is state and
 configuration. `carry_from_numpy` takes the JAX VO carry (OrbFeatures,
 KeyframeState, 4x4 pose) as numpy arrays and returns the port's tensors, so
 a run started by the JAX package can be continued here; `map_state_from_numpy`
@@ -30,7 +31,7 @@ from .pipeline.point_cloud import PointCloudConfig, PointCloudResult, _FusedCarr
 from .pipeline.vo import VoConfig
 
 __all__ = ["carry_from_numpy", "config_from_jax", "point_cloud_config_from_jax", "map_state_from_numpy",
-           "point_cloud_result_from_numpy", "fused_carry_from_numpy"]
+           "point_cloud_result_from_numpy", "fused_carry_from_numpy", "monodepth2_from_flax"]
 
 _FEATURE_DTYPES = dict(
     xy=torch.float32, response=torch.float32, angle=torch.float32, octave=torch.int32,
@@ -139,3 +140,49 @@ def fused_carry_from_numpy(carry, device=None) -> _FusedCarry:
         else:
             fields[name] = torch.tensor(np.asarray(value), device=device)
     return _FusedCarry(**fields)
+
+
+def _conv_weight(kernel) -> torch.Tensor:
+    """A Flax HWIO kernel -> a torch OIHW weight."""
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1))))
+
+
+def _batch_norm(prefix, params, stats) -> dict:
+    out = {name: torch.from_numpy(np.array(tree[key], np.float32))
+           for name, tree, key in (("weight", params, "scale"), ("bias", params, "bias"),
+                                   ("running_mean", stats, "mean"), ("running_var", stats, "var"))}
+    out["num_batches_tracked"] = torch.tensor(0)
+    return {f"{prefix}.{k}": v for k, v in out.items()}
+
+
+def monodepth2_from_flax(encoder_vars, decoder_vars):
+    """MonoDepth2's Flax variables (the JAX package's ResNet18Encoder
+    {params, batch_stats} and DepthDecoder {params} trees; numpy arrays or
+    anything numpy converts) -> (encoder, decoder) state dicts for the port's
+    ResNet18Encoder and DepthDecoder. Conv kernels go from HWIO to OIHW;
+    BatchNorm scale / bias / mean / var become weight / bias / running_mean
+    / running_var."""
+    params, stats = encoder_vars["params"], encoder_vars["batch_stats"]
+    encoder = {"conv1.weight": _conv_weight(params["conv1"]["kernel"]),
+               **_batch_norm("bn1", params["bn1"], stats["bn1"])}
+    for stage in range(1, 5):
+        for block in range(2):
+            p, s, tp = params[f"layer{stage}_{block}"], stats[f"layer{stage}_{block}"], f"layer{stage}.{block}"
+            for i in (1, 2):
+                encoder[f"{tp}.conv{i}.weight"] = _conv_weight(p[f"conv{i}"]["kernel"])
+                encoder.update(_batch_norm(f"{tp}.bn{i}", p[f"bn{i}"], s[f"bn{i}"]))
+            if "downsample_conv" in p:
+                encoder[f"{tp}.downsample.0.weight"] = _conv_weight(p["downsample_conv"]["kernel"])
+                encoder.update(_batch_norm(f"{tp}.downsample.1", p["downsample_bn"], s["downsample_bn"]))
+
+    # The port's ModuleList order: upconv (4, 0), (4, 1), ..., (0, 1), then
+    # the disparity heads by scale.
+    dparams = decoder_vars["params"]
+    names = [(f"upconv_{i}_{j}", "conv.conv") for i in range(4, -1, -1) for j in (0, 1)]
+    names += [(f"dispconv_{s}", "conv") for s in range(4)]
+    decoder = {}
+    for idx, (name, inner) in enumerate(names):
+        conv = dparams[name]["conv"]
+        decoder[f"decoder.{idx}.{inner}.weight"] = _conv_weight(conv["kernel"])
+        decoder[f"decoder.{idx}.{inner}.bias"] = torch.from_numpy(np.array(conv["bias"], np.float32))
+    return encoder, decoder

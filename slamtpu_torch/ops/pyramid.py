@@ -5,7 +5,8 @@ The bilinear resize is two dense weight matmuls. With two non-zero taps per
 row it is EXACT only in full fp32 (two f32 products plus exact zeros), so
 the package keeps `torch.backends.cuda.matmul.allow_tf32 = False` (set in
 slamtpu_torch/__init__.py). The blur is written as shifted-slice sums, not
-`F.conv2d`: cuDNN runs fp32 convolutions in TF32 by default.
+`F.conv2d`, whose cuDNN algorithm (and so summation order) is cuDNN's choice;
+the package turns cuDNN's TF32 off as well.
 """
 
 from __future__ import annotations

@@ -244,3 +244,26 @@ def test_fused_phase2_chunk_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(is_kf.sum()) >= 4 and outs.obs_mask.shape == (8, cfg.max_obs_per_kf)
+
+
+def test_monodepth2_cuda_matches_cpu(cuda):
+    """MonoDepth2 at 96x160 with the same random weights on the card and the
+    host, f32 with TF32 off, an input that needs the antialiased downscale:
+    disparity within 5e-4 (the JAX parity bar); bf16 on the card against f32
+    at tests/test_depth.py's bars."""
+    from slamtpu_torch.depth.monodepth2 import MonoDepth2
+
+    cpu = MonoDepth2(width=160, height=96, seed=1, device="cpu")
+    gpu = MonoDepth2(encoder=cpu.encoder.state_dict(), decoder=cpu.decoder.state_dict(), width=160, height=96,
+                     device=cuda)
+    g16 = MonoDepth2(encoder=cpu.encoder.state_dict(), decoder=cpu.decoder.state_dict(), width=160, height=96,
+                     device=cuda, compute_dtype=torch.bfloat16)
+    x = np.random.default_rng(0).uniform(0, 255, (2, 150, 310)).astype(np.uint8)
+    ref = cpu.predict_raw(x)
+    out = gpu.predict_raw(x)
+    assert out.device.type == "cuda" and out.shape == (2, 96, 160)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=5e-4)
+    d16 = g16.predict_raw(x).cpu().numpy()
+    d32 = out.cpu().numpy()
+    assert np.abs(d16 - d32).max() < 0.05
+    assert np.corrcoef(d32.ravel(), d16.ravel())[0, 1] > 0.97

@@ -191,7 +191,9 @@ _SLICE_MODULES = [
     "slamtpu_torch.ops.patch", "slamtpu_torch.ops.pyramid", "slamtpu_torch.ops.ransac",
     "slamtpu_torch.pipeline.vo", "slamtpu_torch.io.export", "slamtpu_torch.mapping.triangulation",
     "slamtpu_torch.mapping.map", "slamtpu_torch.mapping.bundle_adjustment", "slamtpu_torch.pipeline.point_cloud",
-    "slamtpu_torch.io.checkpoint",
+    "slamtpu_torch.io.checkpoint", "slamtpu_torch.models.resnet", "slamtpu_torch.models.depth_decoder",
+    "slamtpu_torch.depth.monodepth2", "slamtpu_torch.depth.convert", "slamtpu_torch.pipeline.depth_mapping",
+    "slamtpu_torch.io.video", "slamtpu_torch.cli.depth_estimation",
 ]
 
 
