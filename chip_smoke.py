@@ -72,9 +72,27 @@ Phases, each fatal on failure:
                (stride 8, keyframe stride 2): 9 launches of each kernel, a
                finite non-empty cloud, VO success >= 0.8; and on a small
                rendered clip with its true depth maps, median relative error
-               of the cloud < 0.15 (tests/test_depth_mapping.py's bar).
+               of the cloud < 0.15 (tests/test_depth_mapping.py's bar);
+ 10. cli     - writes the clip as a KITTI odometry sequence directory
+               (image_0/%06d.png by a stdlib zlib writer, calib.txt,
+               times.txt at 10 Hz, a camera-to-world poses.txt) and reads it
+               back through load_frames and the native loader, byte-exact,
+               with its decode rate; drives the CLIs in-process on it: the
+               VO CLI at its defaults (1000 features, chunk 32, seed 0;
+               trajectory equal to a direct run_vo, printed ATE equal to
+               evaluate.ate_rmse, 9 launches of each kernel), the
+               point-cloud CLI at its defaults (3000 features, a 65536-slot
+               map, --global-ba, --checkpoint) fused and as the host loop
+               (artifacts written, BA runs > 0, identical keyframes,
+               landmarks within max(3, 2 %) and observations within 5 %, the
+               host log capped at the fused runner's 1024 a keyframe; 9
+               launches each), the BA demo (error lowered), cli.main and
+               visualize_features (9 launches each); then the RANSAC draws
+               of one seed bit-identical on the card and the CPU, StepTimer
+               around run_vo, and a non-empty profile_trace.
 Then it prints one JSON line with every kernel's numbers (launches: the
-fused flagship run's, equal to the VO, host-loop and depth-mapping runs'),
+fused flagship run's, equal to those of every other path: VO, host-loop,
+depth mapping and the CLIs),
 the card's name and power limit (nvidia-smi), and, last, {"ok": true,
 "device": {...}}.
 Exits non-zero without a CUDA device or without the slamtpu_torch package.
@@ -82,11 +100,17 @@ Exits non-zero without a CUDA device or without the slamtpu_torch package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -159,10 +183,12 @@ def device_ms(torch, fn, inputs, reps: int) -> float:
 
 
 def render():
-    from slamtpu_torch.io.synthetic import render_sequence
+    """bench.py's clip, through the port's disk cache (.scene_cache): a
+    second run on the same machine reloads it instead of rendering."""
+    from slamtpu_torch.io.synthetic import render_sequence_cached
     from slamtpu_torch.odometry.camera import CameraIntrinsics
 
-    return render_sequence(
+    return render_sequence_cached(
         n_frames=N_FRAMES, height=HEIGHT, width=WIDTH, n_points=4000, step=0.8,
         intrinsics=CameraIntrinsics.kitti(), seed=0, noise=2.0,
     )
@@ -332,8 +358,6 @@ def vo_phase(torch, scene):
     """The main path: run_vo on the card at full width, gated on ground truth."""
     import numpy as np
 
-    from slamtpu_torch.ops.corner import corner_response
-    from slamtpu_torch.ops.patch import extract_patches_batched
     from slamtpu_torch.pipeline.vo import VoConfig, run_vo
 
     config = VoConfig()
@@ -342,14 +366,12 @@ def vo_phase(torch, scene):
     elapsed, launches = [], None
     n_chunks = -(-N_FRAMES // CHUNK)
     for _ in range(VO_REPEATS):
-        corner_response.launches = 0
-        extract_patches_batched.launches = 0
+        _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run = run_vo(scene.frames, scene.intrinsics, config, chunk_size=CHUNK, seed=0, device="cuda")
         elapsed.append(time.perf_counter() - t0)
-        counts = {"corner_response": corner_response.launches,
-                  "extract_patches_batched": extract_patches_batched.launches}
+        counts = _counts()
         _check_launches(counts, n_chunks, "the VO run")
         if launches is not None and counts != launches:
             raise AssertionError(f"launch counts changed between runs: {launches} vs {counts}")
@@ -364,13 +386,16 @@ def vo_phase(torch, scene):
     rot_med = float(np.median(rot_err[ok])) if ok.any() else float("inf")
     fps = sorted(N_FRAMES / e for e in elapsed)
     fps_med = statistics.median(fps)
+    t_err = translation_errors(run, scene)
     log(f"VO: {N_FRAMES} frames {WIDTH}x{HEIGHT}, {VO_REPEATS} runs in {[round(e, 4) for e in elapsed]} s -> "
         f"median {fps_med:.2f} frames/s (min {fps[0]:.2f}, max {fps[-1]:.2f}); "
-        f"success {success_rate:.4f}, median rot err {rot_med:.4f} deg; launches per run {launches}")
+        f"success {success_rate:.4f}, median rot err {rot_med:.4f} deg; translation direction error {t_err}; "
+        f"launches per run {launches}")
     if success_rate < 0.8 or rot_med > 1.0:
         raise AssertionError(f"VO gates failed: success {success_rate} (>= 0.8), median rot err {rot_med} (<= 1.0)")
     return launches, dict(frames=N_FRAMES, fps_median=fps_med, fps_min=fps[0], fps_max=fps[-1],
-                          elapsed_s=elapsed, success_rate=success_rate, rot_err_deg_median=rot_med)
+                          elapsed_s=elapsed, success_rate=success_rate, rot_err_deg_median=rot_med,
+                          t_dir_err_deg=t_err)
 
 
 def reference_phase(torch):
@@ -430,6 +455,34 @@ def reference_phase(torch):
         raise AssertionError("VO: CUDA and CPU runs disagree on match counts or miss the ground-truth gate")
 
 
+def _reset_counts() -> None:
+    from slamtpu_torch.ops.corner import corner_response
+    from slamtpu_torch.ops.patch import extract_patches_batched
+
+    corner_response.launches = 0
+    extract_patches_batched.launches = 0
+
+
+def _counts() -> dict:
+    """Each kernel's launches since the last _reset_counts."""
+    from slamtpu_torch.ops.corner import corner_response
+    from slamtpu_torch.ops.patch import extract_patches_batched
+
+    return {"corner_response": corner_response.launches, "extract_patches_batched": extract_patches_batched.launches}
+
+
+def translation_errors(run, scene) -> dict:
+    """Angles (degrees) between each successful pair's unit translation and
+    the ground truth's direction: the median, the largest, and the pairs
+    off by more than 10 and 90 degrees (a cheirality-flipped winner)."""
+    import numpy as np
+
+    gt = scene.rel_translations / np.linalg.norm(scene.rel_translations, axis=1, keepdims=True)
+    err = np.degrees(np.arccos(np.clip((run.translations * gt).sum(1), -1.0, 1.0)))[run.success.astype(bool)]
+    return dict(median=float(np.median(err)), max=float(err.max()), over_10=int((err > 10).sum()),
+                over_90=int((err > 90).sum()))
+
+
 def _check_launches(counts: dict, expected: int, what: str) -> None:
     for name, n in counts.items():
         if n != expected:
@@ -443,8 +496,6 @@ def _drive_flagship(torch, scene, runner, repeats: int, what: str):
     result, launches per run, summary)."""
     import numpy as np
 
-    from slamtpu_torch.ops.corner import corner_response
-    from slamtpu_torch.ops.patch import extract_patches_batched
     from slamtpu_torch.pipeline.point_cloud import PointCloudConfig
 
     config = PointCloudConfig()  # == bench.py:687-695
@@ -453,15 +504,13 @@ def _drive_flagship(torch, scene, runner, repeats: int, what: str):
     expected = -(-n_pairs // CHUNK) + 1  # one launch per chunk, one for frame 0
     elapsed, runs, launches = [], [], None
     for _ in range(repeats):
-        corner_response.launches = 0
-        extract_patches_batched.launches = 0
+        _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = runner(scene.frames, scene.intrinsics, config, chunk_size=CHUNK, seed=0, device="cuda")
         torch.cuda.synchronize()
         elapsed.append(time.perf_counter() - t0)
-        counts = {"corner_response": corner_response.launches,
-                  "extract_patches_batched": extract_patches_batched.launches}
+        counts = _counts()
         _check_launches(counts, expected, f"the {what} run")
         launches = counts
         runs.append(res)
@@ -766,8 +815,6 @@ def depth_phase(torch, scene):
     from slamtpu_torch.depth.monodepth2 import MonoDepth2
     from slamtpu_torch.feature.detector import OrbConfig
     from slamtpu_torch.io.synthetic import render_sequence
-    from slamtpu_torch.ops.corner import corner_response
-    from slamtpu_torch.ops.patch import extract_patches_batched
     from slamtpu_torch.ops.ransac import RansacConfig
     from slamtpu_torch.pipeline.depth_mapping import run_depth_mapping
     from slamtpu_torch.pipeline.vo import VoConfig
@@ -839,14 +886,12 @@ def depth_phase(torch, scene):
     # The depth-mapping path on the clip, with the CLI's --fuse-vo depth function.
     depth_fn = depth_fn_for(models["bf16"], HEIGHT, WIDTH)
     run_depth_mapping(scene.frames[: CHUNK + 1], scene.intrinsics, depth_fn, stride=8, device="cuda")  # warm-up
-    corner_response.launches = 0
-    extract_patches_batched.launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_depth_mapping(scene.frames, scene.intrinsics, depth_fn, stride=8, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {"corner_response": corner_response.launches,
-                "extract_patches_batched": extract_patches_batched.launches}
+    launches = _counts()
     _check_launches(launches, -(-N_FRAMES // CHUNK), "the depth-mapping run")
     success = res.vo_run.successful_frames / (N_FRAMES - 1)
     n_kf = len(res.keyframe_frame_idx)
@@ -873,6 +918,205 @@ def depth_phase(torch, scene):
                           bf16_vs_f32_corr=corr, cuda_vs_cpu_max_abs=diff_cpu, mapping_wall_s=wall,
                           mapping_points=len(res.points), mapping_keyframes=n_kf, mapping_vo_success=success,
                           gt_points=len(res_gt.points), gt_median_rel_err=rel)
+
+
+def write_png_gray(path: str, image) -> None:
+    """An 8-bit grayscale PNG with the standard library alone (zlib and
+    struct; every row filter 0): the GPU machine has no cv2 and no PIL."""
+    import numpy as np
+
+    h, w = image.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(image, np.uint8)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_kitti_sequence(directory: str, scene):
+    """The scene as a KITTI odometry sequence directory: image_0/%06d.png,
+    calib.txt (P0..P3 from the scene's intrinsics; P1 and P3 with a stereo
+    baseline), times.txt at 10 Hz, and beside it the ground truth poses.txt
+    (camera-to-world [T, 3, 4] rows, converted from the scene's
+    world-to-camera poses). Returns (sequence directory, poses path)."""
+    import numpy as np
+
+    os.makedirs(os.path.join(directory, "image_0"), exist_ok=True)
+    for i, frame in enumerate(scene.frames):
+        write_png_gray(os.path.join(directory, "image_0", f"{i:06d}.png"), frame)
+    cam = scene.intrinsics
+    with open(os.path.join(directory, "calib.txt"), "w") as f:
+        for i, baseline in enumerate((0.0, -0.54, 0.0, -0.54)):
+            p = [cam.fx, 0.0, cam.cx, baseline * cam.fx, 0.0, cam.fy, cam.cy, 0.0, 0.0, 0.0, 1.0, 0.0]
+            f.write(f"P{i}: " + " ".join(f"{v:.17g}" for v in p) + "\n")
+    with open(os.path.join(directory, "times.txt"), "w") as f:
+        f.write("".join(f"{0.1 * i:.6e}\n" for i in range(len(scene.frames))))
+    r_c2w = np.transpose(scene.rotations, (0, 2, 1))
+    t_c2w = -np.einsum("tij,tj->ti", r_c2w, scene.translations)
+    poses = os.path.join(os.path.dirname(os.path.abspath(directory)), "poses.txt")
+    np.savetxt(poses, np.concatenate([r_c2w, t_c2w[:, :, None]], axis=2).reshape(-1, 12), fmt="%.17g")
+    return directory, poses
+
+
+def _run_cli(main_fn, argv) -> str:
+    """A CLI's main(argv) in this process; its standard output is returned
+    and logged."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    text = buf.getvalue()
+    log("\n".join(f"  | {line}" for line in text.rstrip().splitlines()))
+    return text
+
+
+def cli_phase(torch, scene, device: str = "cuda", workdir: str | None = None):
+    """The CLIs driven in-process from a KITTI-layout directory of the
+    clip: the native loader reads it back byte-exact; the VO CLI at its
+    defaults (1000 features, chunk 32, seed 0) equals a direct run_vo and
+    prints the ATE that evaluate.ate_rmse gives; the point-cloud CLI at its
+    defaults (3000 features, a 65536-slot map), fused and host loop, with
+    --global-ba and --checkpoint; cli.main and visualize_features; the BA
+    demo; then F1's draws card vs CPU, StepTimer around run_vo and
+    profile_trace. Returns (launches by CLI path, summary)."""
+    import numpy as np
+
+    from slamtpu_torch.cli import bundle_adjustment, main as cli_main, point_cloud, visual_odometry, visualize_features
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.io.checkpoint import load_pipeline_state
+    from slamtpu_torch.io.video import load_frames
+    from slamtpu_torch.ops.ransac import pair_uniforms
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig
+    from slamtpu_torch.pipeline.vo import VoConfig, run_vo
+    from slamtpu_torch.utils.evaluate import ate_rmse
+    from slamtpu_torch.utils.metrics import StepTimer, force_sync, profile_trace
+
+    n = len(scene.frames)
+    expected = -(-n // CHUNK)
+    dev = ["--device", device]
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        t0 = time.perf_counter()
+        seq, poses = write_kitti_sequence(os.path.join(tmp, "00"), scene)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frames, cam, fps = load_frames(seq)
+        load_s = time.perf_counter() - t0
+        if not np.array_equal(frames, scene.frames) or cam != scene.intrinsics or abs(fps - 10.0) > 1e-9:
+            raise AssertionError("the KITTI directory does not read back byte-equal with its intrinsics and 10 Hz")
+        out["decode_frames_per_s"] = n / load_s
+        log(f"KITTI directory of {n} {frames.shape[2]}x{frames.shape[1]} PNG frames: written in {write_s:.2f} s "
+            f"(stdlib zlib writer), read back byte-equal through the native loader in {load_s:.4f} s = "
+            f"{n / load_s:.1f} frames/s")
+
+        # --- the VO CLI at its defaults -------------------------------------------------
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            traj_path = os.path.join(tmp, "vo_trajectory.json")
+            _reset_counts()
+            text = _run_cli(visual_odometry.main, [seq, "--gt", poses, "--output", traj_path] + dev)
+            launches["vo_cli"] = _counts()
+            _check_launches(launches["vo_cli"], expected, "the VO CLI")
+            run = run_vo(frames, cam, VoConfig(orb=OrbConfig(max_features=1000), fps=fps), chunk_size=CHUNK, seed=0,
+                         device=device)
+            if open(traj_path).read() != run.trajectory.to_json():
+                raise AssertionError("the VO CLI's trajectory differs from a direct run_vo's")
+            gt = np.loadtxt(poses).reshape(-1, 3, 4)
+            est = np.asarray([p.position for p in run.trajectory.points])
+            ref_ate = ate_rmse(est, gt[[max(p.frame - 1, 0) for p in run.trajectory.points], :, 3])
+            ate = float(text.split("keyframes):")[1].split("m")[0])
+            if not np.isfinite(ate) or f"{ref_ate:.3f}" != f"{ate:.3f}":
+                raise AssertionError(f"the VO CLI's ATE {ate} is not evaluate.ate_rmse's {ref_ate}")
+            out["vo_cli"] = dict(fps=float(text.split("Average FPS:")[1].split()[0]), ate_m=ref_ate,
+                                 success=run.successful_frames / (n - 1), keyframes=run.keyframe_count,
+                                 t_dir_err_deg=translation_errors(run, scene))
+            log(f"VO CLI: trajectory equal to run_vo's, ATE {ref_ate:.6f} m (Sim3) over {len(est)} keyframes, "
+                f"{out['vo_cli']['fps']} frames/s as printed; translation direction error "
+                f"{out['vo_cli']['t_dir_err_deg']}; launches {launches['vo_cli']}")
+
+            # --- the point-cloud CLI at its defaults, fused and host loop ----------------
+            # The fused runner logs at most max_obs_per_kf observations a
+            # keyframe, the host loop all of them: at 3000 features the cap
+            # binds, so the census compares the host log capped the same way.
+            cap = PointCloudConfig().max_obs_per_kf
+            pc = {}
+            for mode in ("fused", "host"):
+                ckpt = os.path.join(tmp, f"ckpt_{mode}")
+                _reset_counts()
+                text = _run_cli(point_cloud.main, [seq, "--global-ba", "--checkpoint", ckpt] + dev
+                                + (["--fused"] if mode == "fused" else []))
+                launches[f"point_cloud_cli_{mode}"] = _counts()
+                _check_launches(launches[f"point_cloud_cli_{mode}"], expected, f"the point-cloud CLI ({mode})")
+                for artifact in ("point_cloud.ply", "point_cloud.json", "trajectory_output.json"):
+                    if not os.path.getsize(artifact):
+                        raise AssertionError(f"the point-cloud CLI ({mode}) wrote no {artifact}")
+                map_state, _, _, kf_frames, _, obs = load_pipeline_state(ckpt, device=device)
+                per_kf = np.bincount(np.asarray(obs[0]), minlength=len(kf_frames)) if obs else np.zeros(1, int)
+                pc[mode] = dict(fps=float(text.split("Avg FPS:")[1].split()[0]),
+                                ba_runs=int(text.split("Bundle Adjustment runs:")[1].split()[0]),
+                                keyframes=np.asarray(kf_frames).tolist(), landmarks=int(map_state.valid.sum()),
+                                observations=int(per_kf.sum()),
+                                observations_capped=int(np.minimum(per_kf, cap).sum()),
+                                kf_at_cap=int((per_kf >= cap).sum()),
+                                global_ba=text.split("Global BA: reprojection error")[1].split("\n")[0].strip())
+                if pc[mode]["ba_runs"] <= 0:
+                    raise AssertionError(f"the point-cloud CLI ({mode}) ran no BA")
+            f, h = pc["fused"], pc["host"]
+            log(f"point-cloud CLI: fused {f['fps']} / host loop {h['fps']} frames/s as printed; keyframes "
+                f"{len(f['keyframes'])} / {len(h['keyframes'])} (identical {f['keyframes'] == h['keyframes']}); BA runs "
+                f"{f['ba_runs']} / {h['ba_runs']}; landmarks {f['landmarks']} / {h['landmarks']}; observations "
+                f"{f['observations']} / {h['observations']} ({h['observations_capped']} with the host log capped at "
+                f"{cap} a keyframe; keyframes at the cap {f['kf_at_cap']} / {h['kf_at_cap']}); global BA "
+                f"{f['global_ba']} / {h['global_ba']}; launches {launches['point_cloud_cli_fused']} / "
+                f"{launches['point_cloud_cli_host']}")
+            if (f["keyframes"] != h["keyframes"] or abs(f["landmarks"] - h["landmarks"]) > max(3, 0.02 * h["landmarks"])
+                    or abs(f["observations"] - h["observations_capped"]) > 0.05 * h["observations_capped"]):
+                raise AssertionError("point-cloud CLI: fused vs host loop outside the JAX package's bars")
+            out["point_cloud_cli"] = {k: {kk: vv for kk, vv in v.items() if kk != "keyframes"} | {
+                "keyframes": len(v["keyframes"])} for k, v in pc.items()}
+
+            # --- the small CLIs ---------------------------------------------------------------
+            text = _run_cli(bundle_adjustment.main, dev)
+            initial = float(text.split("Initial reprojection error:")[1].split()[0])
+            final = float(text.split("Final reprojection error:")[1].split()[0])
+            if not final < initial:
+                raise AssertionError(f"the BA demo did not lower the error: {initial} -> {final}")
+            _reset_counts()
+            text = _run_cli(cli_main.main, [seq] + dev)
+            launches["main_cli"] = _counts()
+            _reset_counts()
+            text += _run_cli(visualize_features.main, [seq, "--max-frames", str(n)] + dev)
+            launches["features_cli"] = _counts()
+            for name in ("main_cli", "features_cli"):
+                _check_launches(launches[name], expected, f"the {name}")
+            if float(text.split("mean features/frame:")[1].split()[0]) < 100 or float(
+                    text.split("Mean good matches/pair:")[1].split()[0]) < 50:
+                raise AssertionError("cli.main / visualize_features found too few features or matches")
+            out["ba_demo"] = dict(initial=initial, final=final)
+        finally:
+            os.chdir(cwd)
+
+        # --- F1 and the metrics ---------------------------------------------------------------
+        ids = list(range(n - 1))
+        if not torch.equal(pair_uniforms(0, ids, 64, 500, device).cpu(), pair_uniforms(0, ids, 64, 500, "cpu")):
+            raise AssertionError(f"pair_uniforms draws differ between {device} and the CPU")
+        timer = StepTimer()
+        timer.start()
+        force_sync(run_vo(frames, cam, VoConfig(), chunk_size=CHUNK, seed=0, device=device))
+        timer.stop()
+        with profile_trace(os.path.join(tmp, "trace")) as trace_dir:
+            run_vo(frames[: CHUNK + 1], cam, VoConfig(), chunk_size=CHUNK, device=device)
+        trace_bytes = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+        if not trace_bytes:
+            raise AssertionError("profile_trace wrote an empty trace")
+        out.update(step_timer_vo_fps=n / timer.times[0], trace_bytes=trace_bytes)
+        log(f"F1: pair_uniforms(0, {n - 1} pairs, 64 x 500) bit-identical on {device} and the CPU; StepTimer "
+            f"around run_vo: {timer.times[0]:.4f} s = {n / timer.times[0]:.2f} frames/s; profile_trace: "
+            f"{trace_bytes} bytes of Chrome trace")
+    return launches, out
 
 
 def main() -> int:
@@ -906,8 +1150,9 @@ def main() -> int:
     launches, fused = fused_phase(torch, scene, host)
     del host
     depth_launches, depth = depth_phase(torch, scene)
+    cli_launches, cli = cli_phase(torch, scene)
     paths = {"vo": vo_launches, "flagship": host_launches, "fused_flagship": launches,
-             "depth_mapping": depth_launches}
+             "depth_mapping": depth_launches, **cli_launches}
     if not all(counts == vo_launches for counts in paths.values()):
         raise AssertionError(f"the main paths launched the kernels differently: {paths}")
     for k in kernels:
@@ -916,7 +1161,7 @@ def main() -> int:
     flagship_ref = flagship_reference_phase(torch)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
-    log(json.dumps({"vo": vo, "flagship": flagship, "fused_flagship": fused, "depth": depth, "ba": ba,
+    log(json.dumps({"vo": vo, "flagship": flagship, "fused_flagship": fused, "depth": depth, "cli": cli, "ba": ba,
                     "flagship_reference": flagship_ref, "compass": compass, "kernel_times_ms": times,
                     "launches_by_path": paths, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,7 +2,7 @@
 
 The JAX package `slamtpu/` is the reference; this package mirrors its layout
 (`feature/`, `ops/`, `odometry/`, `mapping/`, `models/`, `depth/`,
-`pipeline/`, `io/`, `cli/`) so each module's counterpart is found under the
+`pipeline/`, `io/`, `utils/`, `cli/`) so each module's counterpart is found under the
 same path. It imports torch and numpy only — never jax and nothing of
 `slamtpu`.
 

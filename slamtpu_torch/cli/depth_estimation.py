@@ -4,13 +4,15 @@ Usage:
   python -m slamtpu_torch.cli.depth_estimation <input> --encoder encoder.pth \
       --decoder depth.pth [--width 640 --height 192] [--save DIR]
       [--skip-frames N] [--max-frames N] [--random-init] [--device cpu]
-      [--fuse-vo cloud.ply]
+      [--fuse-vo cloud.ply] [--rerun] [--rerun-save log.rrd]
 
 Prints the inference time per frame of each batch and an average-FPS
 summary. On CUDA (the default device) the defaults are batch 64 and bf16;
 on the CPU batch 8 and f32. Without checkpoints, --random-init runs the
-architecture with random weights (timing and smoke only). <input> is a
-synthetic:<T>[x<H>x<W>] spec or a .npy [T, H, W] stack (io/video.py).
+architecture with random weights (timing and smoke only). <input> is any
+spec of io/video.py::load_frames. --rerun logs each frame and its colored
+depth to the Rerun viewer; without the rerun package it prints a notice
+and runs on with no logger.
 """
 
 from __future__ import annotations
@@ -71,9 +73,14 @@ def main(argv=None):
 
     if not args.random_init and not (args.encoder and args.decoder):
         parser.error("provide --encoder/--decoder checkpoints or --random-init")
+    rerun_logger = None
     if args.rerun or args.rerun_save:
-        raise NotImplementedError("--rerun / --rerun-save need utils/metrics.py, not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
+        from ..utils.metrics import RerunLogger
+
+        rerun_logger = RerunLogger(save_path=args.rerun_save)
+        if not rerun_logger.active:
+            print("rerun package not available; --rerun ignored")
+            rerun_logger = None
 
     device = resolve_device(args.device)
     on_cuda = device.type == "cuda"
@@ -118,10 +125,16 @@ def main(argv=None):
         ms_frame = ms / args.batch if n_real < args.batch else ms / n_real
         times.append((ms_frame, n_real < args.batch))
         print(f"Frames {start}-{start + n_real - 1}: {ms_frame:.1f} ms/frame")
+        colored = None
+        if args.save or rerun_logger is not None:
+            colored = model.predict_colored(block)
+        if rerun_logger is not None:
+            for i in range(block.shape[0]):
+                rerun_logger.set_frame(start + i)
+                rerun_logger.log_depth(block[i], colored[i], start + i)
         if args.save:
             import cv2
 
-            colored = model.predict_colored(block)
             os.makedirs(args.save, exist_ok=True)
             for i in range(block.shape[0]):
                 cv2.imwrite(os.path.join(args.save, f"depth_{start + i:05d}.png"),

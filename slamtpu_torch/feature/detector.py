@@ -59,6 +59,10 @@ class OrbFeatures(NamedTuple):
     descriptors: torch.Tensor  # [..., K, 32] uint8 rBRIEF, little bit order
     mask: torch.Tensor  # [..., K] bool
 
+    def count(self) -> torch.Tensor:
+        """Live keypoints per frame, [...] int32."""
+        return torch.sum(self.mask, dim=-1, dtype=torch.int32)
+
 
 def features_per_level(max_features: int, n_levels: int, scale_factor: float):
     """OpenCV's geometric keypoint quota per level (last takes the remainder)."""

@@ -25,6 +25,10 @@ class Matches(NamedTuple):
     distance: torch.Tensor  # [..., N] int32
     mask: torch.Tensor  # [..., N] bool — True where the match slot is live
 
+    def count(self) -> torch.Tensor:
+        """Live matches, summed over every dimension (a 0-d int32 tensor)."""
+        return torch.sum(self.mask, dtype=torch.int32)
+
 
 class FeatureMatcher:
     """Brute-force Hamming matcher, crossCheck=false."""

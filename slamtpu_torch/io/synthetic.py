@@ -26,6 +26,7 @@ from ..odometry.camera import CameraIntrinsics
 __all__ = [
     "SyntheticScene",
     "render_sequence",
+    "render_sequence_cached",
     "forward_path",
     "lateral_path",
     "orbit_path",
@@ -438,3 +439,101 @@ def render_sequence(
         intrinsics=cam,
         depths=depths,
     )
+
+
+_RENDER_VERSION = 1  # bump when render math changes (invalidates disk caches)
+
+
+def render_sequence_cached(cache_dir: str = None, **kwargs) -> SyntheticScene:
+    """`render_sequence` with a disk cache keyed by the full parameter set
+    (the JAX package's key derivation and atomic write).
+
+    Rendering is host-CPU-bound but exactly reproducible: the same
+    parameters and renderer version give identical bits, so a clip is
+    rendered once per machine and reloaded afterwards. A miss renders and
+    then writes the entry through a temporary file and os.replace, so a
+    killed run never leaves a truncated entry. Entries are named
+    `torch_scene_<key>.npz`: the JAX package's are `scene_<key>.npz`, and
+    neither package reads the other's files.
+
+    cache_dir defaults to <repo>/.scene_cache (git-ignored).
+    """
+    import hashlib
+    import inspect
+    import json
+    import os
+    import tempfile
+
+    # Key on render_sequence's resolved parameter set (defaults filled in),
+    # so changing a default invalidates stale entries.
+    bound = inspect.signature(render_sequence).bind(**kwargs)
+    bound.apply_defaults()
+    resolved = bound.arguments
+    if resolved.get("texture_image") is None:
+        resolved.pop("texture_image", None)
+    else:
+        arr = np.ascontiguousarray(np.asarray(resolved["texture_image"]))
+        resolved["texture_image"] = [
+            "ndarray",
+            list(arr.shape),
+            str(arr.dtype),
+            hashlib.sha256(arr.tobytes()).hexdigest()[:20],
+        ]
+    key_src = json.dumps(
+        {
+            "v": _RENDER_VERSION,
+            "np": np.__version__,
+            **{
+                k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else list(v) if isinstance(v, tuple) else v)
+                for k, v in sorted(resolved.items())
+            },
+        },
+        sort_keys=True,
+    )
+    key = hashlib.sha256(key_src.encode()).hexdigest()[:20]
+    if cache_dir is None:
+        cache_dir = os.path.join(os.path.dirname(__file__), "..", "..", ".scene_cache")
+    cache_dir = os.path.abspath(cache_dir)
+    path = os.path.join(cache_dir, f"torch_scene_{key}.npz")
+
+    if os.path.exists(path):
+        try:
+            with np.load(path, allow_pickle=False) as data:
+                return SyntheticScene(
+                    frames=data["frames"],
+                    rotations=data["rotations"],
+                    translations=data["translations"],
+                    rel_rotations=data["rel_rotations"],
+                    rel_translations=data["rel_translations"],
+                    points=data["points"],
+                    intrinsics=CameraIntrinsics(*[float(x) for x in data["intrinsics"]]),
+                    depths=data["depths"] if "depths" in data.files else None,
+                )
+        except Exception:
+            os.unlink(path)  # corrupt entry: render again below
+
+    scene = render_sequence(**kwargs)
+    os.makedirs(cache_dir, exist_ok=True)
+    arrays = dict(
+        frames=scene.frames,
+        rotations=scene.rotations,
+        translations=scene.translations,
+        rel_rotations=scene.rel_rotations,
+        rel_translations=scene.rel_translations,
+        points=scene.points,
+        intrinsics=np.array(
+            [scene.intrinsics.fx, scene.intrinsics.fy, scene.intrinsics.cx, scene.intrinsics.cy], np.float64
+        ),
+    )
+    if scene.depths is not None:
+        arrays["depths"] = scene.depths
+    fd, tmp = tempfile.mkstemp(dir=cache_dir, suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    return scene

@@ -420,7 +420,10 @@ def ba_solve(intrinsics: CameraIntrinsics, rotations, translations, points, obs:
         if n_poses * 6 <= 64:
             delta_p = _solve_pivoted(s_mat, b_red.reshape(-1, 1))[:, 0].reshape(n_poses, 6)
         else:
-            delta_p = torch.linalg.solve(s_mat, b_red.reshape(-1)).reshape(n_poses, 6)
+            # solve_ex does not raise on a singular system: like the JAX
+            # package's solve it gives a non-finite step, which the error
+            # check below rolls back.
+            delta_p = torch.linalg.solve_ex(s_mat, b_red.reshape(-1))[0].reshape(n_poses, 6)
 
         new_rot = so3_exp(delta_p[:, :3]) @ rot
         new_trans = trans + delta_p[:, 3:]

@@ -158,7 +158,8 @@ def _log_observations(state: MapState, feats: OrbFeatures, idx, good):
 
 def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConfig = PointCloudConfig(),
                     chunk_size: int | None = None, seed: int = 0, resume_from: str | None = None,
-                    rerun_logger=None, device=None, uniforms=None) -> PointCloudResult:
+                    rerun_logger=None, device=None, uniforms=None,
+                    pose_dtype: torch.dtype = torch.float32) -> PointCloudResult:
     """Run the flagship over a clip [T, H, W] (uint8/float, numpy or tensor)
     on `device` ("cuda" when None; raises without one).
 
@@ -168,10 +169,15 @@ def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConf
     resume_from: a directory written by PointCloudResult.save_checkpoint;
     the map, keyframe chain, trajectory and observation log continue from
     it (frame indices of the new keyframes count from this clip's frame 0).
-    rerun_logger is not ported yet and raises.
+    rerun_logger: optional `utils.metrics.RerunLogger`; when active, the
+    JAX host loop's viewer events are replayed at the same points: every
+    frame's image, each keyframe's camera transform and match overlays, the
+    map points and the trajectory strip after each keyframe's BA and prune.
+    The host reads they need are made only for an active logger.
+    pose_dtype: the dtype of the frontend's device pose chain (f32 as in
+    the JAX package without x64); the keyframe chain is numpy f64.
     """
-    if rerun_logger is not None:
-        raise NotImplementedError("rerun_logger comes with utils/metrics.py, not ported yet")
+    rr_log = rerun_logger if (rerun_logger is not None and rerun_logger.active) else None
     dev = resolve_device(device)
     t_total = frames.shape[0]
     n_pairs = t_total - 1
@@ -191,7 +197,7 @@ def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConf
         # Slots are recycled by prune and insert, so BA keeps an observation
         # only while its slot still holds the landmark id logged with it.
         log = []
-    carry = (feats0, KeyframeState.initial(dev), torch.as_tensor(trajectory.global_pose, dtype=torch.float64,
+    carry = (feats0, KeyframeState.initial(dev), torch.as_tensor(trajectory.global_pose, dtype=pose_dtype,
                                                                  device=dev))
     prev_feats = feats0
     n_logged = sum(len(entry[0]) for entry in log)
@@ -208,6 +214,11 @@ def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConf
             x.cpu().numpy() for x in (res.success, res.is_keyframe, res.rotations, res.translations))
         successful += int(success.sum())
 
+        if rr_log:
+            for i in range(start + 1, stop + 1):
+                rr_log.set_frame(i)
+                rr_log.log_frame(_host_frame(frames, i))
+
         for local_idx in np.nonzero(is_kf)[0]:
             frame_idx = start + int(local_idx) + 1
             rel_r, rel_t = rotations[local_idx], translations[local_idx]
@@ -219,12 +230,21 @@ def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConf
             good = _match_keyframes(prev_feats.descriptors, prev_feats.mask, cur_feats.descriptors, cur_feats.mask)
             pose_prev = (_f32(kf_rots[-1], dev), _f32(kf_trans[-1], dev))
             pose_cur = (_f32(new_r, dev), _f32(new_t, dev))
+            xy2 = cur_feats.xy[good.train_idx]
             map_state = _triangulate_and_insert(
-                map_state, intrinsics, pose_prev, pose_cur, prev_feats.xy, cur_feats.xy[good.train_idx],
+                map_state, intrinsics, pose_prev, pose_cur, prev_feats.xy, xy2,
                 cur_feats.descriptors[good.train_idx], good.mask)
             kf_rots.append(np.asarray(new_r))
             kf_trans.append(np.asarray(new_t))
             kf_frames.append(frame_idx)
+
+            if rr_log:
+                rr_log.set_frame(frame_idx)
+                rr_log.log_camera(new_r, new_t)
+                p_prev, p_cur = prev_feats.xy[good.mask].cpu().numpy(), xy2[good.mask].cpu().numpy()
+                rr_log.log_matches_2d(p_prev, p_cur)
+                rr_log.log_matches_image(_host_frame(frames, kf_frames[-2]), _host_frame(frames, frame_idx),
+                                         p_prev, p_cur)
             prev_feats = cur_feats
 
             map_state, idx, good = _reassociate(map_state, intrinsics, cur_feats.descriptors, cur_feats.mask,
@@ -240,6 +260,10 @@ def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConf
             if config.prune_interval and n_kf % config.prune_interval == 0:
                 map_state = map_prune(map_state, config.min_observations)
 
+            if rr_log:
+                rr_log.log_points(map_state.positions[map_state.valid].cpu().numpy())
+                rr_log.log_trajectory(np.asarray([p.position for p in trajectory.points], np.float32))
+
     return PointCloudResult(
         map_state=map_state,
         trajectory=trajectory,
@@ -251,6 +275,12 @@ def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConf
         successful_frames=successful,
         observations=_flatten_log(log, 0),
     )
+
+
+def _host_frame(frames, i: int) -> np.ndarray:
+    """Frame i of a numpy or tensor clip, as a host array (for the viewer)."""
+    frame = frames[i]
+    return frame.cpu().numpy() if isinstance(frame, torch.Tensor) else np.asarray(frame)
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -791,7 +821,7 @@ def run_point_cloud_fused(frames, intrinsics: CameraIntrinsics, config: PointClo
             map_state=map_state, free_slots=table, free_head=head, map_bits=bits, map_pops=pops,
             kf_count=len(kf_rots), prev_rot=torch.as_tensor(kf_rots[-1], dtype=pose_dtype, device=dev),
             prev_trans=torch.as_tensor(kf_trans[-1], dtype=pose_dtype, device=dev))
-    carry1 = (feats0, KeyframeState.initial(dev), torch.as_tensor(trajectory.global_pose, dtype=torch.float64,
+    carry1 = (feats0, KeyframeState.initial(dev), torch.as_tensor(trajectory.global_pose, dtype=pose_dtype,
                                                                   device=dev))
 
     step_outs, res_list = [], []

@@ -192,12 +192,18 @@ class VoRun:
 
 
 def run_vo(frames, intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(),
-           chunk_size: int | None = None, seed: int = 0, device=None) -> VoRun:
+           chunk_size: int | None = None, seed: int = 0, device=None, uniforms=None,
+           pose_dtype: torch.dtype = torch.float32) -> VoRun:
     """Run the VO pipeline over a clip [T, H, W] (uint8/float, numpy or
     tensor) on `device` ("cuda" when None; raises without one).
 
     chunk_size None = the whole clip in one chunk; otherwise frames stream
     through chunks of that many steps. Identical results either way.
+    RANSAC draws come from `seed`, one generator per global pair index
+    (ops/ransac.py::pair_uniforms, the same numbers on every device), or
+    from `uniforms` [T-1, iters, K]. pose_dtype: the dtype of the device
+    pose chain (`VoChunkResult.global_poses`), f32 as in the JAX package
+    without x64; the trajectory is composed on the host in f64 either way.
     """
     dev = resolve_device(device)
     t_total = frames.shape[0]
@@ -206,13 +212,19 @@ def run_vo(frames, intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(),
                      np.zeros((0, 3, 3)), np.zeros((0, 3)))
     chunk = chunk_size or t_total
     carry = (seed_features(config.orb, dev), KeyframeState.initial(dev),
-             torch.eye(4, dtype=torch.float64, device=dev))
+             torch.eye(4, dtype=pose_dtype, device=dev))
     results = []
     for start in range(0, t_total, chunk):
         stop = min(start + chunk, t_total)
         block = torch.as_tensor(frames[start:stop]).to(dev)  # uint8 crosses the bus
         step_mask = torch.arange(start, stop, device=dev) >= 1
-        carry, res = vo_chunk(*carry, block, intrinsics, config, step_mask, seed=seed, first_step=start)
+        draws = None
+        if uniforms is not None:
+            # Step j is pair max(j - 1, 0); the masked seed step reuses pair 0's.
+            steps = [max(j - 1, 0) for j in range(start, stop)]
+            draws = torch.as_tensor(uniforms)[steps].to(dev)
+        carry, res = vo_chunk(*carry, block, intrinsics, config, step_mask, uniforms=draws, seed=seed,
+                              first_step=start)
         results.append(res)
     # One device->host copy per field; drop the masked seed step so row i
     # is pair i.

@@ -201,6 +201,28 @@ def test_divergent_step_is_rolled_back():
     assert float(ours[3]) == float(start)
 
 
+def test_singular_reduced_system_is_rolled_back_as_in_jax():
+    """A free pose that no observation sees, with no damping, makes the
+    reduced pose system singular (12 poses: the LU solve above the 64-row
+    pivoted path). The JAX package's solve gives a non-finite step, and so
+    does the port's: both roll it back and return the input state."""
+    rot, trans, pts, (kf, pt, px, mask) = _problem(3, n_poses=12)
+    # Pose 7 unobserved; every landmark left seen at least twice, so each
+    # landmark block is invertible without damping and the only zero pivot
+    # is pose 7's.
+    keep = (kf != 7) & mask
+    keep &= np.bincount(pt[keep], minlength=len(pts))[pt] >= 2
+    used, pt_new = np.unique(pt[keep], return_inverse=True)
+    prob = (rot, trans, pts[used], (kf[keep], pt_new, px[keep], mask[keep]))
+    ours, ref = _solve_both(prob, dict(config=tba.BaConfig(lam=0.0)), dict(config=jba.BaConfig(lam=0.0)),
+                            fix_first_pose=False)
+    assert ours[4] == int(ref[4]) == 1
+    for a, b, start in zip(ours[:3], ref[:3], prob[:3]):
+        np.testing.assert_array_equal(a.numpy(), start)
+        np.testing.assert_array_equal(np.asarray(b), start)
+    assert float(ours[3]) == pytest.approx(float(ref[3]), rel=1e-12)
+
+
 def test_jacobians_match_jax():
     rng = np.random.default_rng(7)
     for _ in range(5):

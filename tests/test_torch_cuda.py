@@ -267,3 +267,25 @@ def test_monodepth2_cuda_matches_cpu(cuda):
     d32 = out.cpu().numpy()
     assert np.abs(d16 - d32).max() < 0.05
     assert np.corrcoef(d32.ravel(), d16.ravel())[0, 1] > 0.97
+
+
+def test_seed_draws_are_the_same_on_the_card_and_the_cpu(cuda):
+    """F1: a seed gives bit-identical RANSAC draws on the card and the CPU
+    (made on a CPU generator, copied from pinned memory), so run_vo(seed=0)
+    on the card is run_vo on those CPU draws."""
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.io.synthetic import render_sequence
+    from slamtpu_torch.ops.ransac import RansacConfig, pair_uniforms
+    from slamtpu_torch.pipeline.vo import VoConfig, run_vo
+
+    ids = [0, 1, 7, 300]
+    gpu = pair_uniforms(5, ids, 64, 500, cuda)
+    assert gpu.device.type == "cuda" and torch.equal(gpu.cpu(), pair_uniforms(5, ids, 64, 500, "cpu"))
+    scene = render_sequence(n_frames=9, height=160, width=240, n_points=600, step=0.3, seed=3, textured=True)
+    cfg = VoConfig(orb=OrbConfig(max_features=128, n_levels=4), ransac=RansacConfig(iters=32, min_solver="5pt"))
+    seeded = run_vo(scene.frames, scene.intrinsics, cfg, chunk_size=4, seed=0, device=cuda)
+    draws = pair_uniforms(0, range(8), 32, 128, "cpu")
+    given = run_vo(scene.frames, scene.intrinsics, cfg, chunk_size=4, uniforms=draws.to(cuda), device=cuda)
+    for name in ("num_matches", "num_inliers", "success", "is_keyframe", "rotations", "translations"):
+        np.testing.assert_array_equal(getattr(given, name), getattr(seeded, name), err_msg=name)
+    assert seeded.successful_frames >= 6

@@ -151,7 +151,7 @@ def test_load_frames(tmp_path):
     assert (cam.fx, cam.cy, fps) == (jcam.fx, jcam.cy, 30.0)
     np.save(tmp_path / "clip.npy", want)
     np.testing.assert_array_equal(load_frames(str(tmp_path / "clip.npy"))[0], want)
-    with pytest.raises(NotImplementedError, match="I/O slice"):
+    with pytest.raises(ValueError, match="no image files"):
         load_frames(str(tmp_path))
 
 
@@ -169,5 +169,7 @@ def test_depth_cli_smoke_with_fuse_vo(tmp_path, capsys):
     with open(ply) as f:
         header = f.read(200)
     assert n > 0 and f"element vertex {n}\n" in header
-    with pytest.raises(NotImplementedError, match="utils/metrics.py"):
-        main(["synthetic:2x64x96", "--random-init", "--device", "cpu", "--rerun"])
+    # Without the rerun package --rerun prints a notice and runs on.
+    main(["synthetic:2x64x96", "--random-init", "--device", "cpu", "--rerun"])
+    out = capsys.readouterr().out
+    assert "rerun package not available; --rerun ignored" in out and "Frames processed: 2" in out

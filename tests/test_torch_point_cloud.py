@@ -105,7 +105,8 @@ def flagship():
             setattr(jpc, name, fn)
     jax_ba = jpc.run_point_cloud(jscene.frames, jscene.intrinsics, _jax_config(5), chunk_size=CHUNK)
     ours = {bi: tpc.run_point_cloud(scene.frames, scene.intrinsics, convert.point_cloud_config_from_jax(_jax_config(bi)),
-                                    chunk_size=CHUNK, device="cpu", uniforms=draws) for bi in (0, 5)}
+                                    chunk_size=CHUNK, device="cpu", uniforms=draws, pose_dtype=torch.float64)
+            for bi in (0, 5)}
     return dict(scene=scene, jscene=jscene, draws=draws, calls=calls, jax={0: jax_no_ba, 5: jax_ba}, ours=ours)
 
 
@@ -332,8 +333,6 @@ def test_single_frame_clip():
 
 def test_unported_options_raise(flagship):
     scene = flagship["scene"]
-    with pytest.raises(NotImplementedError):
-        tpc.run_point_cloud(scene.frames[:2], scene.intrinsics, rerun_logger=object(), device="cpu")
     cfg = tpc.PointCloudConfig(vo=dataclasses.replace(tpc.PointCloudConfig().vo, refine_matches=True))
     with pytest.raises(NotImplementedError):
         tpc.run_point_cloud(scene.frames[:2], scene.intrinsics, cfg, device="cpu")

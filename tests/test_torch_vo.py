@@ -44,6 +44,7 @@ from slamtpu_torch import convert
 from slamtpu_torch.io.synthetic import render_sequence as t_render
 from slamtpu_torch.mapping.keyframe import KeyframeState
 from slamtpu_torch.odometry.camera import CameraIntrinsics
+from slamtpu_torch.ops.ransac import pair_uniforms
 from slamtpu_torch.pipeline import vo as tvo
 
 torch.set_num_threads(1)
@@ -154,6 +155,54 @@ def test_run_vo_chunked_equals_whole_clip(setup):
     assert whole.trajectory.to_json() == ref.to_json()
 
 
+def test_pair_uniforms_cpu_values_unchanged():
+    """The draws are made on a CPU generator for every device; on the CPU
+    they are the numbers the per-device generators gave before, so a seed
+    keeps its CPU results."""
+    u = pair_uniforms(0, [0, 5, 300], 4, 6, "cpu")
+    assert u.dtype == torch.float32 and u.shape == (3, 4, 6) and u.device.type == "cpu"
+    assert u[:, 0, :3].tolist() == [[0.11343264579772949, 0.9062243700027466, 0.39901453256607056],
+                                    [0.20227974653244019, 0.9049655795097351, 0.7126179933547974],
+                                    [0.14581942558288574, 0.013644874095916748, 0.014033913612365723]]
+    assert u[:, 3, 5].tolist() == [0.8387730121612549, 0.007410585880279541, 0.949773907661438]
+    u = pair_uniforms(7, [2], 64, 500, "cpu")
+    assert float(u.double().sum()) == 15954.60813510418 and u[0, 63, 499].item() == 0.031466662883758545
+    torch.testing.assert_close(pair_uniforms(7, [9, 2], 64, 500, "cpu")[1], u[0], rtol=0, atol=0)
+
+
+def test_run_vo_takes_uniforms_and_pose_dtype(setup):
+    """run_vo(seed=s) is run_vo(uniforms=<the seed's draws per pair>); the
+    pose-chain dtype does not change the host results."""
+    scene, tcfg, _, _, _ = setup
+    n_pairs = SCENE["n_frames"] - 1
+    seeded = tvo.run_vo(scene.frames, scene.intrinsics, tcfg, chunk_size=4, seed=4, device="cpu")
+    draws = pair_uniforms(4, range(n_pairs), tcfg.ransac.iters, tcfg.orb.max_features, "cpu")
+    for pose_dtype in (torch.float32, torch.float64):
+        given = tvo.run_vo(scene.frames, scene.intrinsics, tcfg, chunk_size=4, uniforms=draws, device="cpu",
+                           pose_dtype=pose_dtype)
+        for name in ("num_matches", "num_inliers", "success", "is_keyframe", "rotations", "translations"):
+            np.testing.assert_array_equal(getattr(given, name), getattr(seeded, name), err_msg=name)
+        assert given.trajectory.to_json() == seeded.trajectory.to_json()
+
+
+def test_run_vo_matches_jax_run_vo_on_its_draws(setup):
+    """The port's run_vo, handed the JAX package's per-pair draws
+    (jax.random.uniform of split(PRNGKey(0), T-1)), against the JAX
+    run_vo at seed 0, both with an f64 pose chain (JAX runs under x64
+    here): counts and flags exact, rotations within the module's 0.1
+    degree bar."""
+    scene, tcfg, draws, _, _ = setup
+    jscene = j_render(**SCENE)
+    jcfg = jvo.VoConfig(orb=JOrbConfig(max_features=96, n_levels=4), ransac=JRansacConfig(iters=16, min_solver="5pt"))
+    ref = jvo.run_vo(jscene.frames, jscene.intrinsics, jcfg, chunk_size=CHUNK, seed=0)
+    ours = tvo.run_vo(scene.frames, scene.intrinsics, tcfg, chunk_size=CHUNK, uniforms=draws[1:], device="cpu",
+                      pose_dtype=torch.float64)
+    for name in ("num_matches", "num_inliers", "success", "is_keyframe"):
+        np.testing.assert_array_equal(getattr(ours, name), getattr(ref, name), err_msg=name)
+    assert _angle_deg(ours.rotations, ref.rotations).max() < 0.1
+    assert len(ours.trajectory) == len(ref.trajectory)
+
+
 def test_renderer_copy_matches_jax():
     kw = dict(n_frames=3, height=64, width=96, n_points=200, step=0.3, seed=1, textured=True)
     ours, ref = t_render(**kw), j_render(**kw)
@@ -194,6 +243,10 @@ _SLICE_MODULES = [
     "slamtpu_torch.io.checkpoint", "slamtpu_torch.models.resnet", "slamtpu_torch.models.depth_decoder",
     "slamtpu_torch.depth.monodepth2", "slamtpu_torch.depth.convert", "slamtpu_torch.pipeline.depth_mapping",
     "slamtpu_torch.io.video", "slamtpu_torch.cli.depth_estimation",
+    "slamtpu_torch.utils.evaluate", "slamtpu_torch.utils.config", "slamtpu_torch.utils.metrics",
+    "slamtpu_torch.utils.viz", "slamtpu_torch.io.kitti", "slamtpu_torch.io.native_loader", "slamtpu_torch.io.real",
+    "slamtpu_torch.cli.visual_odometry", "slamtpu_torch.cli.point_cloud", "slamtpu_torch.cli.main",
+    "slamtpu_torch.cli.visualize_features", "slamtpu_torch.cli.bundle_adjustment",
 ]
 
 
