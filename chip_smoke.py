@@ -12,9 +12,11 @@ Phases, each fatal on failure:
                on the same CUDA tensors, through both entry points (one
                launch over all levels, and one launch per level): K1's corner
                sets identical and its Harris map bit-identical 4 px in, K2
-               bit-exact. Times each kernel per chunk and per level (CUDA
-               events around the replay of a CUDA graph of many back-to-back
-               launches, divided by their count), its plain version and, where
+               bit-exact, also with the raw levels' windows in the same
+               launch (descriptor_bins=0). Times each kernel per chunk and
+               per level (CUDA events around the replay of a CUDA graph of
+               many back-to-back launches, divided by their count), K2's
+               16-level launch, its plain version and, where
                one exists, the PyTorch call computing the same function;
                counts K1's compass candidates for its operation bound;
   3. compass - the share of the clip's pixels (all chunks and levels) that
@@ -90,9 +92,22 @@ Phases, each fatal on failure:
                visualize_features (9 launches each); then the RANSAC draws
                of one seed bit-identical on the card and the CPU, StepTimer
                around run_vo, and a non-empty profile_trace.
+ 11. vo_options - on the same clip, run_vo (chunk 32, seed 0) with each VO
+               option in turn: refine_matches, the homography fallback,
+               the IRLS refit, prescore_subset=128, descriptor_bins=0
+               (continuous BRIEF: raw and blurred windows in one K2
+               launch) and VoConfig.robust(); each OPTION_REPEATS
+               times with the VO gates and 9 launches of each kernel per
+               run, median frames/s; then run_vo_batched on 4 windows of
+               128 frames (offsets 0, 43, 86, 129): one launch of each
+               kernel a chunk for all four, each sequence equal to run_vo
+               of its window at seed + b (success, matches, keyframes;
+               rotations within 1e-5) and gated; then one pair through the
+               root package's OrbDetector, PoseEstimator and
+               KeyframeSelector (a finite pose, >= 8 inliers).
 Then it prints one JSON line with every kernel's numbers (launches: the
 fused flagship run's, equal to those of every other path: VO, host-loop,
-depth mapping and the CLIs),
+depth mapping, the CLIs and every VO option),
 the card's name and power limit (nvidia-smi), and, last, {"ok": true,
 "device": {...}}.
 Exits non-zero without a CUDA device or without the slamtpu_torch package.
@@ -126,6 +141,9 @@ K1_OPS_PER_PIXEL = 83
 K1_OPS_PER_CANDIDATE = 179
 N_FRAMES = 257  # bench.py's clip
 VO_REPEATS = 5
+OPTION_REPEATS = 3
+BATCH_OFFSETS = (0, 43, 86, 129)  # run_vo_batched's four windows of the clip
+BATCH_FRAMES = 128
 FLAGSHIP_REPEATS = 3
 FUSED_REPEATS = 3
 DEPTH_BATCHES = (8, 64)  # bench.py's, the CLI's default on CUDA
@@ -255,6 +273,10 @@ def kernel_phase(torch, frames):
     k2_err = float((pk - pp).abs().max())
     if not torch.equal(pk, pp):
         raise AssertionError("K2: windows differ from the plain version")
+    # descriptor_bins=0 adds the raw levels' windows to the same launch (16 levels).
+    if not torch.equal(extract_patches_levels(levels + blurred, starts + starts, PATCH_RADIUS),
+                       extract_patches_levels_plain(levels + blurred, starts + starts, PATCH_RADIUS)):
+        raise AssertionError("K2: the 16-level launch (raw and blurred windows) differs from the plain version")
     for lv, (img, st) in enumerate(zip(blurred, starts)):
         if not torch.equal(extract_patches_batched(img, st, PATCH_RADIUS), extract_patches_plain(img, st, PATCH_RADIUS)):
             raise AssertionError(f"K2 level {lv}: windows differ from the plain version")
@@ -284,6 +306,9 @@ def kernel_phase(torch, frames):
         k2_plain=time_ms(torch, lambda bl: extract_patches_levels_plain(bl, starts, PATCH_RADIUS),
                          blurred_variants[:3]),
         k2_lib=device_ms(torch, gather_lib, blurred_variants, reps=4),
+        k2_raw_and_blurred=device_ms(torch, lambda vb: extract_patches_levels(vb[0] + vb[1], starts + starts,
+                                                                              PATCH_RADIUS),
+                                     list(zip(variants, blurred_variants)), reps=10),
     )
     # Comparison and timing launches do not count as main-path launches.
     corner_response.launches, extract_patches_batched.launches = launches_before
@@ -319,7 +344,9 @@ def kernel_phase(torch, frames):
     log(f"K2 per chunk: one launch {times['k2']:.4f} ms; per-level launches "
         f"{[round(t, 4) for t in times['k2_levels']]} (sum {sum(times['k2_levels']):.4f} ms); plain "
         f"{times['k2_plain']:.4f} ms; gather {times['k2_lib']:.4f} ms; bound {k2_bound:.4f} ms "
-        f"({(k2_read + k2_write) / 1e6:.1f} MB)")
+        f"({(k2_read + k2_write) / 1e6:.1f} MB); raw and blurred windows in one launch (descriptor_bins=0, "
+        f"16 levels, bit-identical to the plain version) {times['k2_raw_and_blurred']:.4f} ms, twice the bytes: "
+        f"bound {2 * k2_bound:.4f} ms")
     return [
         dict(name="corner_response", route="cuda", source="slamtpu_torch/csrc/corner_response.cu",
              replaces="slamtpu/ops/pallas_corner.py:165", launches=None, max_abs_err=k1_err,
@@ -972,6 +999,126 @@ def _run_cli(main_fn, argv) -> str:
     return text
 
 
+def _vo_gates(run, scene, what: str):
+    """The VO phase's ground-truth gates on a run of `scene`'s frames:
+    (success rate, median rotation error in degrees)."""
+    import numpy as np
+
+    n = len(run.success)
+    if run.rotations.shape != (n, 3, 3) or not np.isfinite(run.rotations).all():
+        raise AssertionError(f"{what}: rotations are not finite [T-1, 3, 3]")
+    tr = np.einsum("tij,tij->t", run.rotations, scene.rel_rotations[:n])
+    rot_err = np.degrees(np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0)))
+    ok = run.success.astype(bool)
+    success_rate, rot_med = float(ok.mean()), float(np.median(rot_err[ok])) if ok.any() else float("inf")
+    if success_rate < 0.8 or rot_med > 1.0:
+        raise AssertionError(f"{what}: gates failed: success {success_rate} (>= 0.8), median rot err {rot_med} "
+                             f"(<= 1.0)")
+    return success_rate, rot_med
+
+
+def vo_options_phase(torch, scene, device: str = "cuda"):
+    """Every VO option on the clip, run_vo_batched on four windows of it,
+    and one pair through the root package's eager wrappers."""
+    import dataclasses
+
+    import numpy as np
+
+    import slamtpu_torch
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.feature.matcher import FeatureMatcher
+    from slamtpu_torch.pipeline.vo import VoConfig, run_vo, run_vo_batched
+
+    base = VoConfig()
+    configs = {
+        "refine_matches": VoConfig(refine_matches=True),
+        "homography_fallback": VoConfig(ransac=dataclasses.replace(base.ransac, homography_fallback=True)),
+        "irls": VoConfig(ransac=dataclasses.replace(base.ransac, refit_method="irls")),
+        "prescore_subset=128": VoConfig(ransac=dataclasses.replace(base.ransac, prescore_subset=128)),
+        "descriptor_bins=0": VoConfig(orb=dataclasses.replace(OrbConfig(), descriptor_bins=0)),
+        "robust": VoConfig.robust(),
+    }
+    n_chunks = -(-N_FRAMES // CHUNK)
+    out, launches = {}, {}
+    for name, config in configs.items():
+        run_vo(scene.frames[: CHUNK + 1], scene.intrinsics, config, chunk_size=CHUNK, device=device)  # warm-up
+        elapsed = []
+        for _ in range(OPTION_REPEATS):
+            _reset_counts()
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            run = run_vo(scene.frames, scene.intrinsics, config, chunk_size=CHUNK, seed=0, device=device)
+            elapsed.append(time.perf_counter() - t0)
+            counts = _counts()
+            _check_launches(counts, n_chunks, f"run_vo with {name}")
+        launches[f"vo:{name}"] = counts
+        success, rot_med = _vo_gates(run, scene, f"run_vo with {name}")
+        fps = statistics.median(N_FRAMES / e for e in elapsed)
+        out[name] = dict(fps_median=fps, elapsed_s=elapsed, success_rate=success, rot_err_deg_median=rot_med,
+                         t_dir_err_deg=translation_errors(run, scene))
+        log(f"vo option {name}: {N_FRAMES} frames, {OPTION_REPEATS} runs in {[round(e, 4) for e in elapsed]} s -> "
+            f"median {fps:.2f} frames/s; success {success:.4f}, median rot err {rot_med:.4f} deg; translation "
+            f"direction error {out[name]['t_dir_err_deg']}; launches per run {counts}")
+
+    # --- run_vo_batched: four windows in one pass, against run_vo of each -----------------
+    windows = np.stack([scene.frames[o : o + BATCH_FRAMES] for o in BATCH_OFFSETS])
+    run_vo_batched(windows[:, : CHUNK + 1], scene.intrinsics, base, chunk_size=CHUNK, device=device)  # warm-up
+    _reset_counts()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    runs = run_vo_batched(windows, scene.intrinsics, base, chunk_size=CHUNK, seed=0, device=device)
+    batched_s = time.perf_counter() - t0
+    counts = _counts()
+    _check_launches(counts, -(-BATCH_FRAMES // CHUNK), "run_vo_batched (one launch a chunk for all sequences)")
+    solo_s, worst = 0.0, 0.0
+    for b, (offset, run) in enumerate(zip(BATCH_OFFSETS, runs)):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        solo = run_vo(windows[b], scene.intrinsics, base, chunk_size=CHUNK, seed=b, device=device)
+        solo_s += time.perf_counter() - t0
+        for field in ("success", "num_matches", "is_keyframe"):
+            if not np.array_equal(getattr(run, field), getattr(solo, field)):
+                raise AssertionError(f"run_vo_batched sequence {b}: {field} differs from run_vo of its window")
+        diff = float(np.abs(run.rotations - solo.rotations).max())
+        worst = max(worst, diff)
+        if diff > 1e-5:
+            raise AssertionError(f"run_vo_batched sequence {b}: rotations differ from run_vo by {diff} (> 1e-5)")
+        _vo_gates(run, dataclasses.replace(scene, rel_rotations=scene.rel_rotations[offset:]),
+                  f"run_vo_batched sequence {b}")
+    n_frames = len(BATCH_OFFSETS) * BATCH_FRAMES
+    out["batched"] = dict(sequences=len(BATCH_OFFSETS), frames_each=BATCH_FRAMES, fps=n_frames / batched_s,
+                          solo_fps=n_frames / solo_s, rotation_max_abs_diff=worst, launches=counts)
+    log(f"run_vo_batched: {len(BATCH_OFFSETS)} windows of {BATCH_FRAMES} frames (offsets {list(BATCH_OFFSETS)}) in "
+        f"{batched_s:.4f} s = {n_frames / batched_s:.2f} frames/s, against {n_frames / solo_s:.2f} frames/s for "
+        f"run_vo of each window in turn; success, matches and keyframes equal, rotations within {worst:.3g}; "
+        f"launches {counts}")
+
+    # --- the root package's eager wrappers on one pair -----------------------------------------
+    cam = scene.intrinsics
+    det = slamtpu_torch.OrbDetector(max_features=base.orb.max_features, device=device)
+    f1, f2 = det.detect_and_compute(scene.frames[0]), det.detect(scene.frames[1])
+    matcher = FeatureMatcher()
+    good = matcher.filter_good_matches(matcher.match_descriptors(f1.descriptors, f2.descriptors, f1.mask, f2.mask))
+    est = slamtpu_torch.PoseEstimator(cam, device=device)
+    p1, p2 = est.extract_matched_points(f1.xy.cpu().numpy(), f2.xy.cpu().numpy(), good)
+    res = est.compute_essential_matrix(p1, p2, config=base.ransac)
+    rot, trans = est.recover_pose(res, p1, p2)
+    is_kf = slamtpu_torch.KeyframeSelector(device=device).should_be_keyframe(rot, trans, len(p1))
+    n_inl = int(res.num_inliers)
+    if not (np.isfinite(rot).all() and np.isfinite(trans).all()) or n_inl < 8:
+        raise AssertionError(f"eager wrappers: pose not finite or {n_inl} inliers (< 8)")
+    err = float(np.degrees(np.arccos(np.clip((np.trace(rot.T @ scene.rel_rotations[0]) - 1) / 2, -1, 1))))
+    out["eager"] = dict(matches=len(p1), inliers=n_inl, rot_err_deg=err, keyframe=bool(is_kf))
+    log(f"eager wrappers (OrbDetector, PoseEstimator, KeyframeSelector) on pair 0: {len(p1)} matches, {n_inl} inliers, "
+        f"rotation error {err:.4f} deg, keyframe {is_kf}")
+    return launches, out
+
+
+def _sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def cli_phase(torch, scene, device: str = "cuda", workdir: str | None = None):
     """The CLIs driven in-process from a KITTI-layout directory of the
     clip: the native loader reads it back byte-exact; the VO CLI at its
@@ -1151,8 +1298,9 @@ def main() -> int:
     del host
     depth_launches, depth = depth_phase(torch, scene)
     cli_launches, cli = cli_phase(torch, scene)
+    option_launches, vo_options = vo_options_phase(torch, scene)
     paths = {"vo": vo_launches, "flagship": host_launches, "fused_flagship": launches,
-             "depth_mapping": depth_launches, **cli_launches}
+             "depth_mapping": depth_launches, **cli_launches, **option_launches}
     if not all(counts == vo_launches for counts in paths.values()):
         raise AssertionError(f"the main paths launched the kernels differently: {paths}")
     for k in kernels:
@@ -1161,7 +1309,8 @@ def main() -> int:
     flagship_ref = flagship_reference_phase(torch)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
-    log(json.dumps({"vo": vo, "flagship": flagship, "fused_flagship": fused, "depth": depth, "cli": cli, "ba": ba,
+    log(json.dumps({"vo": vo, "flagship": flagship, "fused_flagship": fused, "depth": depth, "cli": cli,
+                    "vo_options": vo_options, "ba": ba,
                     "flagship_reference": flagship_ref, "compass": compass, "kernel_times_ms": times,
                     "launches_by_path": paths, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,6 +6,11 @@ The JAX package `slamtpu/` is the reference; this package mirrors its layout
 same path. It imports torch and numpy only — never jax and nothing of
 `slamtpu`.
 
+The public API is re-exported flat at the package root, the same 15 names
+as the JAX package's root (`OrbDetector`, `PoseEstimator`, `Map`, ...).
+Each loads its module on first use, so `import slamtpu_torch` costs torch
+and nothing more.
+
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`). Kernel wrappers choose by the device of the tensor they
 are given: a CUDA tensor launches the hand-written Hopper kernel (or
@@ -22,12 +27,44 @@ to False. Reduced precision is asked for explicitly, as MonoDepth2's bf16
 mode is.
 """
 
+import importlib
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["resolve_device"]
+# Flat public API: name -> the submodule that defines it, loaded on first use.
+_EXPORTS = {
+    "OrbDetector": "slamtpu_torch.feature.detector",
+    "FeatureMatcher": "slamtpu_torch.feature.matcher",
+    "Matches": "slamtpu_torch.feature.matcher",
+    "CameraIntrinsics": "slamtpu_torch.odometry.camera",
+    "PoseEstimator": "slamtpu_torch.odometry.pose",
+    "Trajectory": "slamtpu_torch.odometry.trajectory",
+    "TrajectoryPoint": "slamtpu_torch.odometry.trajectory",
+    "KeyframeConfig": "slamtpu_torch.mapping.keyframe",
+    "KeyframeSelector": "slamtpu_torch.mapping.keyframe",
+    "Triangulator": "slamtpu_torch.mapping.triangulation",
+    "MapPoint": "slamtpu_torch.mapping.triangulation",
+    "Map": "slamtpu_torch.mapping.map",
+    "BundleAdjuster": "slamtpu_torch.mapping.bundle_adjustment",
+    "Observation": "slamtpu_torch.mapping.bundle_adjustment",
+    "MonoDepth2": "slamtpu_torch.depth.monodepth2",
+}
+
+__all__ = sorted(_EXPORTS) + ["resolve_device"]
+
+
+def __getattr__(name: str):
+    module_name = _EXPORTS.get(name)
+    if module_name is None:
+        raise AttributeError(f"module 'slamtpu_torch' has no attribute {name!r}")
+    return getattr(importlib.import_module(module_name), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
 
 
 def resolve_device(device=None) -> torch.device:

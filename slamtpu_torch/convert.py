@@ -56,11 +56,8 @@ def carry_from_numpy(prev_feats, kf_state, global_pose, device=None):
 
 # JAX fields with no port counterpart. exact_topk and corner_backend only
 # steer TPU code paths: selection is always exact here and the corner kernel
-# is chosen by tensor device. The others tune paths that raise
-# NotImplementedError here when switched on (refine_matches,
-# homography_fallback), so they are read by nothing.
-_SKIPPED = {"exact_topk", "corner_backend", "refine_radius", "refine_search", "homography_ratio",
-            "homography_iters"}
+# is chosen by tensor device.
+_SKIPPED = {"exact_topk", "corner_backend"}
 _NESTED = {"orb": OrbConfig, "ransac": RansacConfig, "keyframe": KeyframeConfig, "vo": VoConfig,
            "ba": BaConfig}
 

@@ -8,8 +8,10 @@ ranking) covers every level; then, per level, exact top-k with a
 sub-pixel Harris fit at the finest levels; one launch of kernel K2
 (ops/patch.py) cuts the 39x39 windows of every level's blurred image into
 one [B, K, 39, 39] tensor in slot order; intensity-centroid orientation and
-binned rBRIEF run once over all K slots. Both kernels run on CUDA tensors;
-their plain versions on CPU tensors.
+binned rBRIEF run once over all K slots. With `descriptor_bins=0` the same
+launch also cuts the windows of the raw levels: orientation is measured on
+those and OpenCV's continuously steered BRIEF reads the blurred ones. Both
+kernels run on CUDA tensors; their plain versions on CPU tensors.
 
 Selection uses exact `torch.topk`; the JAX package's approx_max_k is exact
 on the CPU, where the parity tests run it.
@@ -22,12 +24,13 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.brief import PATCH_RADIUS, brief_descriptors_binned, orientation
+from .. import resolve_device
+from ..ops.brief import PATCH_RADIUS, brief_descriptors, brief_descriptors_binned, orientation
 from ..ops.corner import corner_response_levels
 from ..ops.patch import extract_patches_levels
 from ..ops.pyramid import build_pyramid, gaussian_blur
 
-__all__ = ["OrbConfig", "OrbFeatures", "detect_and_compute", "features_per_level"]
+__all__ = ["OrbConfig", "OrbFeatures", "OrbDetector", "detect_and_compute", "features_per_level"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +45,7 @@ class OrbConfig:
     fast_threshold: float = 20.0
     edge_threshold: int = 31
     patch_size: int = 31
-    descriptor_bins: int = 12  # > 0: binned steering (the only path ported)
+    descriptor_bins: int = 12  # > 0: binned steering; 0: continuous rotation (orientation on the raw image)
     subpixel: bool = True
     subpixel_max_octave: int = 2
 
@@ -123,15 +126,23 @@ def _select_level(ranked: torch.Tensor, quota: int, margin: int, harris_map=None
     return xy, xy_out, torch.where(mask, top_vals, torch.zeros_like(top_vals)), mask
 
 
-def detect_and_compute(images: torch.Tensor, config: OrbConfig = OrbConfig()) -> OrbFeatures:
+def detect_and_compute(images: torch.Tensor, config: OrbConfig = OrbConfig(), groups: int = 1) -> OrbFeatures:
     """Batched ORB: [B, H, W] (float or uint8) -> OrbFeatures with
-    K = config.max_features slots per image, on the images' device."""
-    if config.descriptor_bins <= 0:
-        raise NotImplementedError("continuous-rotation BRIEF (descriptor_bins=0) is not ported yet")
+    K = config.max_features slots per image, on the images' device.
+
+    groups: the batch is that many equal runs of frames (sequences of
+    run_vo_batched). The pyramid's resize matmuls run once per run: cuBLAS
+    picks their kernels by batch size, so this keeps each run's features
+    those it gets when detected alone. Everything else, both kernels
+    included, runs once over the whole batch."""
     images = images.to(torch.float32).contiguous()
     batch = images.shape[0]
     device = images.device
-    pyramid = build_pyramid(images, config.n_levels, config.scale_factor)
+    if groups == 1:
+        pyramid = build_pyramid(images, config.n_levels, config.scale_factor)
+    else:
+        pyramid = [torch.cat(parts) for parts in zip(*(build_pyramid(x, config.n_levels, config.scale_factor)
+                                                       for x in images.chunk(groups)))]
     quotas = features_per_level(config.max_features, config.n_levels, config.scale_factor)
     min_extent = max(2 * PATCH_RADIUS + 1, 2 * config.edge_threshold + 1)
     # Levels with a quota, in slot order; those too small for the patch /
@@ -162,11 +173,19 @@ def detect_and_compute(images: torch.Tensor, config: OrbConfig = OrbConfig()) ->
             starts.append(torch.zeros((batch, q, 2), dtype=torch.int32, device=device))
 
     # K2, one launch over every level (zero windows for the unused ones);
-    # then orientation and BRIEF once over all slots.
+    # then orientation and BRIEF once over all slots. The continuous path
+    # adds the raw levels to the same launch.
     blurred = [gaussian_blur(level_images[lv]) if lv in level_images else None for lv in slot_levels]
-    patches = extract_patches_levels(blurred, starts, PATCH_RADIUS)
-    ang = orientation(patches)
-    desc = brief_descriptors_binned(patches, ang, config.descriptor_bins)
+    if config.descriptor_bins > 0:
+        patches = extract_patches_levels(blurred, starts, PATCH_RADIUS)
+        ang = orientation(patches)
+        desc = brief_descriptors_binned(patches, ang, config.descriptor_bins)
+    else:
+        raw = [level_images.get(lv) for lv in slot_levels]
+        both = extract_patches_levels(raw + blurred, starts + starts, PATCH_RADIUS)
+        k = both.shape[1] // 2
+        ang = orientation(both[:, :k])
+        desc = brief_descriptors(both[:, k:], ang)
     if len(used) < len(slot_levels):
         used_slot = torch.cat([torch.full((batch, quotas[lv]), lv in level_images, dtype=torch.bool, device=device)
                                for lv in slot_levels], dim=1)
@@ -174,3 +193,24 @@ def detect_and_compute(images: torch.Tensor, config: OrbConfig = OrbConfig()) ->
         desc = torch.where(used_slot[..., None], desc, torch.zeros_like(desc))
     xy, resp, octave, size, mask = (torch.cat(parts, dim=1) for parts in (xy, resp, octave, size, mask))
     return OrbFeatures(xy, resp, ang, octave, size, desc, mask)
+
+
+class OrbDetector:
+    """Eager detector on one image [H, W] (or a batch [B, H, W]) with the
+    requested feature budget. Images are moved to `device` ("cuda" unless
+    the caller asks for the CPU)."""
+
+    def __init__(self, max_features: int = 500, config: OrbConfig | None = None, device=None):
+        self.config = dataclasses.replace(config or OrbConfig(), max_features=max_features)
+        self.device = resolve_device(device)
+
+    def detect(self, image) -> OrbFeatures:
+        """Keypoints (the descriptors come with them)."""
+        return self.detect_and_compute(image)
+
+    def detect_and_compute(self, image) -> OrbFeatures:
+        """Keypoints + descriptors; a single image gives unbatched fields."""
+        image = torch.as_tensor(image, device=self.device)
+        single = image.dim() == 2
+        feats = detect_and_compute(image[None] if single else image, self.config)
+        return OrbFeatures(*[x[0] for x in feats]) if single else feats

@@ -12,9 +12,10 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
 from ..ops.lie import rotation_angle
 
-__all__ = ["KeyframeConfig", "KeyframeState", "keyframe_step"]
+__all__ = ["KeyframeConfig", "KeyframeSelector", "KeyframeState", "keyframe_step", "select_keyframes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,10 +39,11 @@ class KeyframeState(NamedTuple):
 
 
 def keyframe_step(config: KeyframeConfig, state: KeyframeState, rotation, translation, num_matches):
-    """One selection step -> (new_state, is_keyframe bool scalar)."""
+    """One selection step -> (new_state, is_keyframe bool); batched over
+    leading dimensions of the state and inputs."""
     frames = state.frames_since_last + 1
     force = frames >= config.max_frames
-    trans = torch.linalg.vector_norm(translation) >= config.min_translation
+    trans = torch.linalg.vector_norm(translation, dim=-1) >= config.min_translation
     rot = rotation_angle(rotation) >= config.min_rotation
     have_prev = state.last_keyframe_matches > 0
     ratio = num_matches.to(torch.float32) / torch.clamp(
@@ -59,3 +61,50 @@ def keyframe_step(config: KeyframeConfig, state: KeyframeState, rotation, transl
         ),
     )
     return new_state, is_kf
+
+
+def select_keyframes(config: KeyframeConfig, rotations, translations, num_matches, state=None):
+    """The selector over a clip, step by step: rotations [T, 3, 3],
+    translations [T, 3], num_matches [T] -> (final state, is_keyframe [T]
+    bool). Each step depends on the state the previous one left."""
+    if state is None:
+        state = KeyframeState.initial(rotations.device)
+    num_matches = torch.as_tensor(num_matches, device=rotations.device)
+    flags = []
+    for r, t, n in zip(rotations, translations, num_matches):
+        state, kf = keyframe_step(config, state, r, t, n)
+        flags.append(kf)
+    if not flags:
+        return state, torch.zeros((0,), dtype=torch.bool, device=rotations.device)
+    return state, torch.stack(flags)
+
+
+class KeyframeSelector:
+    """Frame-at-a-time selector. Its state lives on `device` ("cuda"
+    unless the caller asks for the CPU); each decision is read back to the
+    host as a bool."""
+
+    def __init__(self, config: KeyframeConfig | None = None, device=None):
+        self.config = config or KeyframeConfig()
+        self.device = resolve_device(device)
+        self._state = KeyframeState.initial(self.device)
+
+    def should_be_keyframe(self, rotation, translation, num_matches: int) -> bool:
+        self._state, is_kf = keyframe_step(
+            self.config, self._state,
+            torch.as_tensor(rotation, device=self.device),
+            torch.as_tensor(translation, device=self.device),
+            torch.as_tensor(num_matches, dtype=torch.int32, device=self.device),
+        )
+        return bool(is_kf)
+
+    def reset(self) -> None:
+        self._state = KeyframeState.initial(self.device)
+
+    def mark_as_keyframe(self, num_matches: int) -> None:
+        self._state = KeyframeState(torch.zeros((), dtype=torch.int32, device=self.device),
+                                    torch.tensor(num_matches, dtype=torch.int32, device=self.device))
+
+    @property
+    def frames_since_last(self) -> int:
+        return int(self._state.frames_since_last)

@@ -15,19 +15,28 @@ from typing import List
 import numpy as np
 import torch
 
-__all__ = ["TrajectoryPoint", "Trajectory", "compose_relative_transforms"]
+from ..ops.lie import se3_matrix
+
+__all__ = ["TrajectoryPoint", "Trajectory", "compose_relative_transforms", "positions_from_relative"]
 
 
 def compose_relative_transforms(rel_transforms: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix products: [T, 4, 4] -> out[k] = T[0] @ T[1] @ ... @ T[k]
-    (left-to-right composition order). ceil(log2 T) rounds of one batched
-    matmul each."""
+    """Inclusive prefix products along the step axis: [..., T, 4, 4] ->
+    out[k] = T[0] @ T[1] @ ... @ T[k] (left-to-right composition order).
+    ceil(log2 T) rounds of one batched matmul each."""
     out = rel_transforms
     d = 1
-    while d < out.shape[0]:
-        out = torch.cat([out[:d], out[:-d] @ out[d:]], dim=0)
+    while d < out.shape[-3]:
+        out = torch.cat([out[..., :d, :, :], out[..., :-d, :, :] @ out[..., d:, :, :]], dim=-3)
         d *= 2
     return out
+
+
+def positions_from_relative(rotations: torch.Tensor, translations: torch.Tensor) -> torch.Tensor:
+    """[T, 3, 3], [T, 3] relative motions -> [T+1, 3] global positions,
+    the origin first."""
+    positions = compose_relative_transforms(se3_matrix(rotations, translations))[:, :3, 3]
+    return torch.cat([torch.zeros_like(positions[:1]), positions], dim=0)
 
 
 @dataclasses.dataclass

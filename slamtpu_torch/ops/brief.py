@@ -24,6 +24,7 @@ __all__ = [
     "brief_pattern",
     "extract_patches",
     "orientation",
+    "brief_descriptors",
     "brief_descriptors_binned",
 ]
 
@@ -77,6 +78,27 @@ def orientation(patches: torch.Tensor) -> torch.Tensor:
     m10 = torch.sum(center * wx, dim=(-2, -1))
     m01 = torch.sum(center * wy, dim=(-2, -1))
     return torch.atan2(m01, m10)
+
+
+def brief_descriptors(blurred_patches: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Steered BRIEF with the orientation taken as is (OpenCV's continuous
+    rotation): [..., P, P] blurred patches + [...] angles -> [..., 32] uint8.
+    Each pattern point is rotated by its keypoint's angle, rounded to the
+    nearest pixel as cvRound rounds (ties to even) and read from the patch."""
+    p = blurred_patches.shape[-1]
+    c = (p - 1) // 2
+    pat = torch.tensor(brief_pattern(), dtype=angles.dtype, device=blurred_patches.device)
+    cos, sin = torch.cos(angles)[..., None], torch.sin(angles)[..., None]
+
+    def sample_index(px, py):
+        rx = torch.round(px * cos - py * sin).to(torch.int64) + c
+        ry = torch.round(px * sin + py * cos).to(torch.int64) + c
+        return ry * p + rx
+
+    flat = blurred_patches.reshape(*blurred_patches.shape[:-2], p * p)
+    v1 = torch.gather(flat, -1, sample_index(pat[:, 0], pat[:, 1]))
+    v2 = torch.gather(flat, -1, sample_index(pat[:, 2], pat[:, 3]))
+    return pack_bits((v1 < v2).to(torch.uint8))
 
 
 @functools.lru_cache()

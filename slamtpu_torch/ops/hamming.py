@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["unpack_bits", "pack_bits", "descriptor_bits", "hamming_matrix_from_bits"]
+__all__ = ["unpack_bits", "pack_bits", "descriptor_bits", "hamming_matrix", "hamming_matrix_from_bits",
+           "hamming_matrix_popcount", "match_best", "match_top2"]
 
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
@@ -44,3 +45,43 @@ def hamming_matrix_from_bits(q_bits, q_pop, t_bits, t_pop) -> torch.Tensor:
     dots = torch.matmul(q_bits, t_bits.transpose(-1, -2)).to(torch.float32)
     dist = q_pop[..., :, None] + t_pop[..., None, :] - 2.0 * dots
     return dist.to(torch.int32)
+
+
+def hamming_matrix(query_packed, train_packed) -> torch.Tensor:
+    """Pairwise distances [..., N, M] int32 from packed descriptors
+    [..., N, B] and [..., M, B] uint8: one matmul on unpacked bits."""
+    q_bits, q_pop = descriptor_bits(query_packed)
+    t_bits, t_pop = descriptor_bits(train_packed)
+    return hamming_matrix_from_bits(q_bits, q_pop, t_bits, t_pop)
+
+
+_POPCOUNT8 = [bin(i).count("1") for i in range(256)]
+
+
+def hamming_matrix_popcount(query_packed, train_packed) -> torch.Tensor:
+    """Reference path: XOR of the packed bytes and a popcount table,
+    [N, B] x [M, B] uint8 -> [N, M] int32."""
+    table = torch.tensor(_POPCOUNT8, dtype=torch.int32, device=query_packed.device)
+    xored = torch.bitwise_xor(query_packed[:, None, :], train_packed[None, :, :])
+    return torch.sum(table[xored.to(torch.int64)], dim=-1, dtype=torch.int32)
+
+
+def match_best(query_packed, train_packed, big: int = 1 << 30):
+    """Best train match per query: (train_idx [N] int32, distance [N]
+    int32), the first minimum on ties; with M == 0, index 0 at `big`."""
+    dist = hamming_matrix(query_packed, train_packed)
+    if dist.shape[-1] == 0:
+        n = dist.shape[-2]
+        return (torch.zeros((n,), dtype=torch.int32, device=dist.device),
+                torch.full((n,), big, dtype=torch.int32, device=dist.device))
+    return torch.argmin(dist, dim=-1).to(torch.int32), torch.amin(dist, dim=-1)
+
+
+def match_top2(query_packed, train_packed):
+    """Best and second-best distances per query, for ratio tests:
+    (train_idx [N], best [N], second [N]) int32; ties go to the lower
+    train index, as jax.lax.top_k orders them."""
+    dist = hamming_matrix(query_packed, train_packed)
+    order = torch.sort(dist, dim=-1, stable=True)
+    return (order.indices[..., 0].to(torch.int32), order.values[..., 0].to(torch.int32),
+            order.values[..., 1].to(torch.int32))

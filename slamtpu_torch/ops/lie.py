@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["hat", "so3_exp", "so3_log", "rotation_angle", "se3_matrix"]
+__all__ = ["hat", "so3_exp", "so3_log", "rotation_angle", "se3_matrix", "se3_inverse", "rt_from_matrix"]
 
 _EPS = 1e-8
 
@@ -90,3 +90,14 @@ def se3_matrix(rotation: torch.Tensor, translation: torch.Tensor) -> torch.Tenso
     bottom = torch.zeros(batch + (1, 4), dtype=top.dtype, device=top.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def se3_inverse(rotation: torch.Tensor, translation: torch.Tensor):
+    """(R, t) -> (R^T, -R^T t): a world->camera pose as camera->world."""
+    r_inv = rotation.transpose(-1, -2)
+    return r_inv, -(r_inv @ translation[..., None])[..., 0]
+
+
+def rt_from_matrix(transform: torch.Tensor):
+    """Split 4x4 homogeneous transforms [..., 4, 4] into (R, t)."""
+    return transform[..., :3, :3], transform[..., :3, 3]

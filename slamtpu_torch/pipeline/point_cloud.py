@@ -208,8 +208,9 @@ def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConf
         stop = min(start + chunk, n_pairs)
         block = torch.as_tensor(frames[start + 1 : stop + 1]).to(dev)
         draws = None if uniforms is None else torch.as_tensor(uniforms[start:stop]).to(dev)
+        prev_frame = torch.as_tensor(frames[start]).to(dev) if config.vo.refine_matches else None
         carry, res, feats_new = vo_frontend(*carry, block, intrinsics, config.vo, uniforms=draws, seed=seed,
-                                            first_step=start + 1)
+                                            first_step=start + 1, prev_frame=prev_frame)
         success, is_kf, rotations, translations = (
             x.cpu().numpy() for x in (res.success, res.is_keyframe, res.rotations, res.translations))
         successful += int(success.sum())
@@ -767,12 +768,12 @@ def _fused_phase2_chunk(carry: _FusedCarry, feats: OrbFeatures, rel_rot, rel_tra
 
 
 def _flagship_chunk(carry1, carry2: _FusedCarry, block, intrinsics, config: PointCloudConfig, uniforms=None,
-                    seed: int = 0, first_step: int = 0):
+                    seed: int = 0, first_step: int = 0, prev_frame=None):
     """The VO frontend over one chunk, then phase 2 over its keyframes.
     Reads the chunk's keyframe flags on the host once. Returns (frontend
     carry, phase-2 carry, VoChunkResult, stacked step outputs)."""
     carry1, res, feats = vo_frontend(*carry1, block, intrinsics, config.vo, uniforms=uniforms, seed=seed,
-                                     first_step=first_step)
+                                     first_step=first_step, prev_frame=prev_frame)
     is_kf = res.is_keyframe.cpu().numpy()
     carry2, outs = _fused_phase2_chunk(carry2, feats, res.rotations, res.translations, is_kf, intrinsics, config)
     return carry1, carry2, res, outs
@@ -829,8 +830,9 @@ def run_point_cloud_fused(frames, intrinsics: CameraIntrinsics, config: PointClo
         stop = min(start + chunk, n_pairs)
         block = torch.as_tensor(frames[start + 1 : stop + 1]).to(dev)
         draws = None if uniforms is None else torch.as_tensor(uniforms[start:stop]).to(dev)
+        prev_frame = torch.as_tensor(frames[start]).to(dev) if config.vo.refine_matches else None
         carry1, carry2, res, outs = _flagship_chunk(carry1, carry2, block, intrinsics, config, draws, seed,
-                                                    first_step=start + 1)
+                                                    first_step=start + 1, prev_frame=prev_frame)
         step_outs.append(outs)
         res_list.append(res)
 

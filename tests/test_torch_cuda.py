@@ -289,3 +289,87 @@ def test_seed_draws_are_the_same_on_the_card_and_the_cpu(cuda):
     for name in ("num_matches", "num_inliers", "success", "is_keyframe", "rotations", "translations"):
         np.testing.assert_array_equal(getattr(given, name), getattr(seeded, name), err_msg=name)
     assert seeded.successful_frames >= 6
+
+
+def _options_scene():
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.io.synthetic import render_sequence
+    from slamtpu_torch.ops.ransac import RansacConfig
+    from slamtpu_torch.pipeline.vo import VoConfig
+
+    scene = render_sequence(n_frames=13, height=160, width=240, n_points=600, step=0.3, seed=3, textured=True)
+    return scene, VoConfig(orb=OrbConfig(max_features=128, n_levels=4), ransac=RansacConfig(iters=32, min_solver="5pt"))
+
+
+def test_run_vo_batched_cuda_equals_run_vo(cuda):
+    """Two windows in one pass on the card: one launch of each kernel a
+    chunk for both, and each sequence equal to run_vo of its window at
+    seed + b on the card (success, matches, keyframes; rotations 1e-5)."""
+    from slamtpu_torch.pipeline.vo import run_vo, run_vo_batched
+
+    scene, cfg = _options_scene()
+    windows = np.stack([scene.frames[:9], scene.frames[4:]])
+    before = (corner_response.launches, extract_patches_batched.launches)
+    runs = run_vo_batched(windows, scene.intrinsics, cfg, chunk_size=4, seed=2, device=cuda)
+    assert (corner_response.launches - before[0], extract_patches_batched.launches - before[1]) == (3, 3)
+    for b, run in enumerate(runs):
+        solo = run_vo(windows[b], scene.intrinsics, cfg, chunk_size=4, seed=2 + b, device=cuda)
+        for name in ("success", "num_matches", "is_keyframe"):
+            np.testing.assert_array_equal(getattr(run, name), getattr(solo, name), err_msg=name)
+        np.testing.assert_allclose(run.rotations, solo.rotations, rtol=0, atol=1e-5)
+        assert run.successful_frames >= 6
+
+
+def test_continuous_brief_cuda_matches_cpu(cuda):
+    """descriptor_bins=0 on the card: the raw and blurred windows in one K2
+    launch; keypoints as on the CPU and descriptor bytes equal but for
+    rounding ties (chip_smoke.py's detector bar: 99 %)."""
+    import dataclasses
+
+    from slamtpu_torch.feature.detector import detect_and_compute
+
+    scene, cfg = _options_scene()
+    orb = dataclasses.replace(cfg.orb, descriptor_bins=0)
+    frames = torch.from_numpy(scene.frames[:4])
+    before = extract_patches_batched.launches
+    gpu = detect_and_compute(frames.to(cuda), orb)
+    assert extract_patches_batched.launches == before + 1
+    cpu = detect_and_compute(frames, orb)
+    assert torch.equal(gpu.mask.cpu(), cpu.mask)
+    assert float((gpu.xy.cpu() - cpu.xy).abs().max()) < 1e-3
+    assert float((gpu.descriptors.cpu() == cpu.descriptors).float().mean()) > 0.99
+
+
+def test_pose_options_cuda_match_cpu_at_f64(cuda):
+    """Homography fallback with the IRLS refit, prescore, and
+    refine_matches on the card against the CPU on the same inputs and
+    draws: f64 poses within 1e-6, inlier sets equal; refined points exact."""
+    from slamtpu_torch.odometry.pose import estimate_relative_pose
+    from slamtpu_torch.ops.patch_refine import refine_matches
+    from slamtpu_torch.ops.ransac import PairDraws, RansacConfig
+
+    scene, _ = _options_scene()
+    cam = scene.intrinsics
+    pix = []
+    for f in (0, 1):
+        pc = scene.points @ scene.rotations[f].T + scene.translations[f]
+        pix.append(np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx, cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1))
+    noise = np.random.default_rng(0).normal(0.0, 0.5, (2,) + pix[0].shape)
+    p1, p2 = (torch.from_numpy(pix[f][:300] + noise[f][:300]) for f in (0, 1))
+    gen = torch.Generator().manual_seed(0)
+    draws = PairDraws(torch.rand((64, 300), generator=gen), torch.rand((64, 300), generator=gen),
+                      torch.rand((300,), generator=gen))
+    for cfg in (RansacConfig(iters=64, homography_fallback=True, homography_iters=64, refit_method="irls"),
+                RansacConfig(iters=64, min_solver="5pt", prescore_subset=100)):
+        ref = estimate_relative_pose(cam, p1, p2, config=cfg, uniforms=draws)
+        gpu = estimate_relative_pose(cam, p1.to(cuda), p2.to(cuda), config=cfg,
+                                     uniforms=PairDraws(*[d.to(cuda) for d in draws]))
+        assert torch.equal(gpu.inliers.cpu(), ref.inliers) and bool(gpu.valid) == bool(ref.valid)
+        torch.testing.assert_close(gpu.rotation.cpu(), ref.rotation, rtol=0, atol=1e-6)
+    frames = torch.from_numpy(scene.frames[:2])
+    q1 = torch.from_numpy(np.random.default_rng(1).uniform(5, 230, (200, 2)).astype(np.float32))
+    q2 = q1 + 1.3
+    mask = torch.ones(200, dtype=torch.bool)
+    ref = refine_matches(frames[0], frames[1], q1, q2, mask)
+    gpu = refine_matches(frames[0].to(cuda), frames[1].to(cuda), q1.to(cuda), q2.to(cuda), mask.to(cuda))
+    torch.testing.assert_close(gpu.cpu(), ref, rtol=0, atol=1e-5)

@@ -98,14 +98,16 @@ def test_config_unknown_keys_raise():
 
 
 def test_config_unported_switch_raises_where_it_raises_today():
+    """A switch that once raised now runs: the config JSON's fallback and
+    its ratio reach the VO config, and run_vo runs with them."""
     from slamtpu_torch.odometry.camera import CameraIntrinsics
     from slamtpu_torch.pipeline.vo import run_vo
 
     cfg = config.from_json('{"ransac": {"homography_fallback": true, "homography_ratio": 0.5}}')
-    assert cfg.ransac == RansacConfig(homography_fallback=True)
+    assert cfg.ransac == RansacConfig(homography_fallback=True, homography_ratio=0.5)
     frames = np.random.default_rng(0).integers(0, 256, (2, 96, 96), dtype=np.uint8)
-    with pytest.raises(NotImplementedError):
-        run_vo(frames, CameraIntrinsics.kitti(), cfg.vo(), device="cpu")
+    run = run_vo(frames, CameraIntrinsics.kitti(), cfg.vo(), device="cpu")
+    assert run.total_frames == 2 and run.success.shape == (1,)
 
 
 def _kitti_dir(root, n=5, h=40, w=60):

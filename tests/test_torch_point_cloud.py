@@ -57,6 +57,7 @@ from slamtpu_torch.mapping.map import Map, map_find_matches, map_insert
 from slamtpu_torch.mapping.triangulation import MapPoint, Triangulator, triangulate_points
 from slamtpu_torch.odometry.camera import CameraIntrinsics
 from slamtpu_torch.pipeline import point_cloud as tpc
+from slamtpu_torch.pipeline import vo as tvo
 
 torch.set_num_threads(1)
 
@@ -332,10 +333,19 @@ def test_single_frame_clip():
 
 
 def test_unported_options_raise(flagship):
-    scene = flagship["scene"]
-    cfg = tpc.PointCloudConfig(vo=dataclasses.replace(tpc.PointCloudConfig().vo, refine_matches=True))
-    with pytest.raises(NotImplementedError):
-        tpc.run_point_cloud(scene.frames[:2], scene.intrinsics, cfg, device="cpu")
+    """refine_matches, once unported, now runs in the host loop: each
+    chunk's frontend gets the frame before the chunk, so the flagship's
+    trajectory is the one run_vo gives with refine_matches on the same
+    draws (the same pairs, chunked differently)."""
+    scene, draws = flagship["scene"], flagship["draws"]
+    cfg = convert.point_cloud_config_from_jax(_jax_config(0))
+    cfg = dataclasses.replace(cfg, vo=dataclasses.replace(cfg.vo, refine_matches=True))
+    frames, draws = scene.frames[:9], draws[:8]
+    res = tpc.run_point_cloud(frames, scene.intrinsics, cfg, chunk_size=4, device="cpu", uniforms=draws)
+    vo = tvo.run_vo(frames, scene.intrinsics, cfg.vo, chunk_size=4, uniforms=draws, device="cpu")
+    assert res.successful_frames == vo.successful_frames >= 5
+    positions = [np.array([p.position for p in t.points]) for t in (res.trajectory, vo.trajectory)]
+    np.testing.assert_allclose(positions[0], positions[1], rtol=0, atol=1e-5)
 
 
 def test_point_cloud_config_from_jax_maps_every_field():

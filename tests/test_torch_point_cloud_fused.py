@@ -211,10 +211,25 @@ def test_single_frame_clip():
 
 
 def test_refine_matches_raises(fused):
-    scene = fused["scene"]
-    cfg = tpc.PointCloudConfig(vo=dataclasses.replace(tpc.PointCloudConfig().vo, refine_matches=True))
-    with pytest.raises(NotImplementedError):
-        tpc.run_point_cloud_fused(scene.frames[:2], scene.intrinsics, cfg, device="cpu")
+    """refine_matches, once unported, now runs in the fused runner: each
+    chunk's frontend gets the frame before the chunk, so with BA off the
+    fused runner equals the host loop with refine_matches too, and the
+    refinement moves the poses."""
+    scene, draws = fused["scene"], fused["draws"]
+    cfg = convert.point_cloud_config_from_jax(_jax_config(0))
+    cfg = dataclasses.replace(cfg, vo=dataclasses.replace(cfg.vo, refine_matches=True))
+    frames, draws = scene.frames[:9], draws[:8]
+    ours = tpc.run_point_cloud_fused(frames, scene.intrinsics, cfg, chunk_size=4, device="cpu", uniforms=draws,
+                                     pose_dtype=F64)
+    host = tpc.run_point_cloud(frames, scene.intrinsics, cfg, chunk_size=4, device="cpu", uniforms=draws)
+    _assert_schedule_equal(ours, host)
+    np.testing.assert_allclose(ours.keyframe_rotations, host.keyframe_rotations, rtol=0, atol=1e-12)
+    assert ours.successful_frames >= 5
+    plain = tpc.run_point_cloud_fused(frames, scene.intrinsics, dataclasses.replace(
+        cfg, vo=dataclasses.replace(cfg.vo, refine_matches=False)), chunk_size=4, device="cpu", uniforms=draws,
+        pose_dtype=F64)
+    assert plain.keyframe_rotations.shape != ours.keyframe_rotations.shape or np.abs(
+        plain.keyframe_rotations - ours.keyframe_rotations).max() > 1e-6
 
 
 def test_config_maps_max_obs_per_kf():

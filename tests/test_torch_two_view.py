@@ -156,8 +156,14 @@ def test_relative_pose_failure_is_identity():
     assert not bool(res.valid)
     np.testing.assert_array_equal(res.rotation.numpy(), np.eye(3))
     np.testing.assert_array_equal(res.translation.numpy(), np.zeros(3))
-    with pytest.raises(NotImplementedError):
-        tpose.estimate_relative_pose(cam, p, p, config=transac.RansacConfig(homography_fallback=True))
+    # With the homography fallback (once unported, now run) a failure is
+    # still the identity.
+    res = tpose.estimate_relative_pose(cam, p, p, mask=torch.zeros(20, dtype=torch.bool),
+                                       config=transac.RansacConfig(iters=4, homography_fallback=True,
+                                                                   homography_iters=4))
+    assert not bool(res.valid)
+    np.testing.assert_array_equal(res.rotation.numpy(), np.eye(3))
+    np.testing.assert_array_equal(res.translation.numpy(), np.zeros(3))
 
 
 def test_draws_from_an_explicit_generator_are_reproducible(rng):
