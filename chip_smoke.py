@@ -105,9 +105,29 @@ Phases, each fatal on failure:
                rotations within 1e-5) and gated; then one pair through the
                root package's OrbDetector, PoseEstimator and
                KeyframeSelector (a finite pose, >= 8 inliers).
+ 12. parallel - the multi-device layer (slamtpu_torch/parallel/). One NCCL
+               rank (initialize_multihost(), make_mesh() -> (1, 1)):
+               sharded_vo_step on the clip against run_vo in turns
+               (success, matches, keyframes, rotations and translations
+               identical, positions within 1e-5 relative; the VO gates; 9
+               launches of each kernel), run_point_cloud_sharded against
+               run_point_cloud_fused (keyframes, BA runs and successful
+               frames identical, landmarks within max(15, 15 %)) and
+               run_point_cloud_batched with B = 1 against the sharded
+               runner (identical), 9 launches each, frames/s of each.
+               Then PARALLEL_RANKS Gloo ranks sharing the card
+               (torch.multiprocessing, spawn): on the clip's first 256
+               frames, each rank's block of sharded_vo_step on a (1, 4)
+               mesh against run_vo (success, matches, keyframes identical;
+               rotations within 1e-5, positions within 1e-4 relative; 2
+               launches a rank); run_point_cloud_batched on a (2, 2) mesh
+               over frames 0-127 and 129-256 (seeds 0 and 1) against
+               run_point_cloud_fused of each at the bars above; the wall
+               time and rank 0's collectives (host clock around each).
 Then it prints one JSON line with every kernel's numbers (launches: the
 fused flagship run's, equal to those of every other path: VO, host-loop,
-depth mapping, the CLIs and every VO option),
+depth mapping, the CLIs and every VO option; the parallel paths' counts
+are in it too, held to their own),
 the card's name and power limit (nvidia-smi), and, last, {"ok": true,
 "device": {...}}.
 Exits non-zero without a CUDA device or without the slamtpu_torch package.
@@ -148,6 +168,10 @@ FLAGSHIP_REPEATS = 3
 FUSED_REPEATS = 3
 DEPTH_BATCHES = (8, 64)  # bench.py's, the CLI's default on CUDA
 CHUNK = 32
+PARALLEL_RANKS = 4
+PARALLEL_FRAMES = 256  # the four-rank VO: rank r's 64 frames are run_vo's chunks 2r and 2r + 1
+PARALLEL_CLIPS = ((0, 128), (129, 257))  # the four-rank batched flagship's clips, at seeds 0 and 1
+PARALLEL_TIMEOUT_S = 600
 HEIGHT, WIDTH = 376, 1241
 
 
@@ -1266,6 +1290,293 @@ def cli_phase(torch, scene, device: str = "cuda", workdir: str | None = None):
     return launches, out
 
 
+def _timed(torch, device, fn, expected: int, what: str):
+    """One run of `fn` with the host clock around it, ending in a sync, and
+    the kernels' launches in it checked against `expected`. Returns
+    (result, seconds, launches)."""
+    _reset_counts()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, device)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    if torch.device(device).type == "cuda":  # a rehearsal on the CPU launches no kernel
+        _check_launches(counts, expected, what)
+    return out, seconds, counts
+
+
+def _vo_block(result) -> dict:
+    """A sharded_vo_step result's first sequence as numpy arrays."""
+    return {k: v[0].cpu().numpy() for k, v in result._asdict().items()}
+
+
+def _check_sharded_vo(got: dict, run, what: str, rot_tol: float, pos_tol: float) -> dict:
+    """Slots [1, T) of a sharded step against run_vo's pairs: success,
+    matches and keyframes identical, rotations within rot_tol (0 =
+    identical, then translations too), keyframe positions within pos_tol of
+    run_vo's trajectory relative to its extent. Returns the gaps."""
+    import numpy as np
+
+    for field, ours in (("success", got["success"]), ("num_matches", got["num_matches"]),
+                        ("is_keyframe", got["is_keyframe"])):
+        if not np.array_equal(ours[1:], getattr(run, field)):
+            raise AssertionError(f"{what}: {field} differs from run_vo's")
+    rot = float(np.abs(got["rotations"][1:] - run.rotations).max())
+    trans = float(np.abs(got["translations"][1:] - run.translations).max())
+    serial = np.array([p.position for p in run.trajectory.points])[1:]
+    pos = float(np.abs(got["positions"][1:][run.is_keyframe] - serial).max() / max(1.0, np.abs(serial).max()))
+    if rot > rot_tol or (rot_tol == 0 and trans > 0) or pos > pos_tol:
+        raise AssertionError(f"{what}: rotations {rot} (bar {rot_tol}), translations {trans}, positions {pos} "
+                             f"relative (bar {pos_tol}) off run_vo")
+    return dict(rotation_max_abs_diff=rot, translation_max_abs_diff=trans, position_rel_gap=pos)
+
+
+def _check_flagship(got, ref, what: str, exact: bool = False) -> dict:
+    """tests/test_sharding.py's flagship bars (keyframes, BA runs and
+    successful frames identical; landmarks within max(15, 15 %)); with
+    `exact`, the maps' validity identical too. Returns the differences."""
+    import numpy as np
+
+    n_got, n_ref = int(got.map_state.valid.sum()), int(ref.map_state.valid.sum())
+    diff = dict(landmarks=(n_got, n_ref), ba_runs=(got.ba_runs, ref.ba_runs),
+                successful=(got.successful_frames, ref.successful_frames),
+                keyframe_rotation_max_abs_diff=float(np.abs(got.keyframe_rotations - ref.keyframe_rotations).max())
+                if len(got.keyframe_rotations) == len(ref.keyframe_rotations) else None)
+    same = (np.array_equal(got.keyframe_frame_idx, ref.keyframe_frame_idx) and got.ba_runs == ref.ba_runs
+            and got.successful_frames == ref.successful_frames and abs(n_got - n_ref) <= max(15, 0.15 * n_ref))
+    if exact:
+        same = same and np.array_equal(got.map_state.valid.cpu().numpy(), ref.map_state.valid.cpu().numpy())
+    if not same:
+        raise AssertionError(f"{what}: outside the flagship bars: {diff}")
+    return diff
+
+
+def parallel_one_rank(torch, scene, device: str = "cuda"):
+    """The multi-device runners on a one-rank group (NCCL on the card): the
+    sharded VO step against run_vo, the sharded flagship against the fused
+    runner and the batched one (B = 1) against the sharded one, each timed
+    in turns with its serial counterpart."""
+    import types
+
+    from slamtpu_torch.parallel.distributed import initialize_multihost
+    from slamtpu_torch.parallel.flagship import run_point_cloud_batched, run_point_cloud_sharded
+    from slamtpu_torch.parallel.mesh import make_mesh
+    from slamtpu_torch.parallel.sharded import sharded_vo_step
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud_fused
+    from slamtpu_torch.pipeline.vo import VoConfig, run_vo
+
+    rank_world = initialize_multihost(device=device)
+    try:
+        mesh = make_mesh()
+        backend = torch.distributed.get_backend()
+        frames, cam, config = scene.frames, scene.intrinsics, VoConfig()
+        n = frames.shape[0]
+        n_chunks = -(-n // CHUNK)
+        sharded_vo_step(mesh, frames[None, : CHUNK + 1], cam, config, chunk_size=CHUNK, device=device)  # warm-up
+
+        vo = lambda: run_vo(frames, cam, config, chunk_size=CHUNK, seed=0, device=device)  # noqa: E731
+        sh = lambda: sharded_vo_step(mesh, frames[None], cam, config, chunk_size=CHUNK, seed=0,  # noqa: E731
+                                     device=device)
+        times = {"run_vo": [], "sharded_vo_step": []}
+        for name, fn in (("run_vo", vo), ("sharded_vo_step", sh), ("sharded_vo_step", sh), ("run_vo", vo)):
+            out, seconds, counts = _timed(torch, device, fn, n_chunks, name)
+            times[name].append(seconds)
+            if name == "run_vo":
+                run = out
+            else:
+                got, vo_launches = _vo_block(out), counts
+        gaps = _check_sharded_vo(got, run, "one-rank sharded_vo_step", 0.0, 1e-5)
+        success, rot_med = _vo_gates(types.SimpleNamespace(success=got["success"][1:], rotations=got["rotations"][1:]),
+                                     scene, "one-rank sharded_vo_step")
+        fps = {k: [n / s for s in v] for k, v in times.items()}
+        log(f"parallel, one {backend} rank, mesh {tuple(mesh.shape)}: sharded_vo_step on {n} frames "
+            f"{[round(f, 2) for f in fps['sharded_vo_step']]} frames/s against run_vo "
+            f"{[round(f, 2) for f in fps['run_vo']]} in turns; success, matches and keyframes identical, rotations "
+            f"and translations identical, positions {gaps['position_rel_gap']:.3g} relative; success {success:.4f}, "
+            f"median rot err {rot_med:.4f} deg; launches {vo_launches}")
+
+        pc = PointCloudConfig()
+        run_point_cloud_sharded(frames[: CHUNK + 1], cam, mesh, pc, chunk_size=CHUNK, device=device)  # warm-up
+        fused = lambda: run_point_cloud_fused(frames, cam, pc, chunk_size=CHUNK, seed=0, device=device)  # noqa: E731
+        shf = lambda: run_point_cloud_sharded(frames, cam, mesh, pc, seed=0, chunk_size=CHUNK,  # noqa: E731
+                                              device=device)
+        bat = lambda: run_point_cloud_batched(frames[None], cam, mesh, pc, seeds=[0], chunk_size=CHUNK,  # noqa: E731
+                                              device=device)[0]
+        times = {"fused": [], "sharded": [], "batched": []}
+        results, launches = {}, {}
+        for name, fn in (("fused", fused), ("sharded", shf), ("batched", bat), ("fused", fused)):
+            results[name], seconds, launches[name] = _timed(torch, device, fn, n_chunks, f"the {name} flagship")
+            times[name].append(seconds)
+        vs_fused = _check_flagship(results["sharded"], results["fused"], "run_point_cloud_sharded vs fused")
+        vs_sharded = _check_flagship(results["batched"], results["sharded"], "batched (B = 1) vs sharded", exact=True)
+        ffps = {k: [(n - 1) / s for s in v] for k, v in times.items()}
+        log(f"parallel, one {backend} rank: flagship frames/s (pairs over wall) in turns fused "
+            f"{[round(f, 2) for f in ffps['fused']]}, sharded {[round(f, 2) for f in ffps['sharded']]}, batched "
+            f"{[round(f, 2) for f in ffps['batched']]}; sharded vs fused {vs_fused}; batched vs sharded {vs_sharded}; "
+            f"launches {launches['sharded']} / {launches['batched']}")
+    finally:
+        torch.distributed.destroy_process_group()
+    paths = {"parallel_sharded_vo": vo_launches, "parallel_sharded_flagship": launches["sharded"],
+             "parallel_batched_flagship": launches["batched"]}
+    return paths, dict(rank_world=rank_world, backend=backend, mesh=tuple(mesh.shape), vo_fps=fps, vo_gaps=gaps,
+                       vo_success_rate=success, vo_rot_err_deg_median=rot_med, flagship_fps=ffps,
+                       sharded_vs_fused=vs_fused, batched_vs_sharded=vs_sharded)
+
+
+def _time_collectives(torch, device, pdist) -> dict:
+    """Wrap the package's collective helpers with the host clock (after a
+    sync, so that pending device work stays out of the window); returns
+    name -> list of seconds, filled as the helpers run."""
+    times = {}
+    for name in ("shift_right", "all_gather", "gather_to_first", "all_gather_object", "broadcast_object"):
+        def timed(*args, _fn=getattr(pdist, name), _name=name, **kwargs):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            times.setdefault(_name, []).append(time.perf_counter() - t0)
+            return out
+        setattr(pdist, name, timed)
+    return times
+
+
+def _parallel_rank(rank: int, world: int, port: int, out_dir: str, device: str, cam, n_frames: int, clips,
+                   chunk: int) -> None:
+    """One of `world` Gloo ranks sharing the card: its block of the sharded
+    VO step on a (1, world) mesh over the first n_frames frames of the clip
+    in <out_dir>/frames.npy, then run_point_cloud_batched on a (2, world /
+    2) mesh over `clips` ([start, stop) each, clip b at seed b); its
+    results, times and launches pickled to out_dir."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from slamtpu_torch.parallel import distributed as pdist
+    from slamtpu_torch.parallel.flagship import run_point_cloud_batched
+    from slamtpu_torch.parallel.mesh import make_mesh
+    from slamtpu_torch.parallel.sharded import sharded_vo_step
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig
+    from slamtpu_torch.pipeline.vo import VoConfig
+
+    pdist.initialize_multihost(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo")
+    try:
+        collectives = _time_collectives(torch, device, pdist)
+        clip = np.load(os.path.join(out_dir, "frames.npy"))
+        mesh = make_mesh(data=1)
+        frames = clip[:n_frames]
+        block = pdist.from_process_local(mesh, frames[None])
+        sharded_vo_step(mesh, pdist.from_process_local(mesh, frames[None, : 8 * world]), cam, VoConfig(),
+                        chunk_size=chunk, device=device)  # warm-up
+        collectives.clear()
+        res, vo_s, vo_launches = _timed(torch, device, lambda: sharded_vo_step(
+            mesh, block, cam, VoConfig(), chunk_size=chunk, seed=0, device=device), -(-block.shape[1] // chunk),
+            f"rank {rank}'s sharded_vo_step")
+        out = dict(rank=rank, slice=pdist.local_time_slice(mesh, n_frames), vo=_vo_block(res), vo_s=vo_s,
+                   vo_launches=vo_launches, vo_collectives={k: list(v) for k, v in collectives.items()})
+
+        mesh22 = make_mesh(data=2)
+        clip_frames = np.stack([clip[a:b] for a, b in clips])
+        per_rank = clip_frames.shape[1] // (world // 2)
+        collectives.clear()
+        results, batched_s, batched_launches = _timed(torch, device, lambda: run_point_cloud_batched(
+            clip_frames, cam, mesh22, PointCloudConfig(), seeds=list(range(len(clips))), chunk_size=chunk,
+            device=device), -(-per_rank // chunk), f"rank {rank}'s run_point_cloud_batched")
+        out.update(batched_s=batched_s, batched_launches=batched_launches,
+                   batched_collectives={k: list(v) for k, v in collectives.items()},
+                   batched=[dict(keyframe_frame_idx=r.keyframe_frame_idx, ba_runs=r.ba_runs,
+                                 successful_frames=r.successful_frames, keyframe_rotations=r.keyframe_rotations,
+                                 valid=r.map_state.valid.cpu()) for r in results])
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def parallel_four_ranks(torch, scene, device: str = "cuda"):
+    """PARALLEL_RANKS Gloo ranks on the one card (torch.multiprocessing,
+    spawn): each rank's block of the sharded VO step against run_vo of the
+    clip's first PARALLEL_FRAMES frames, and the batched flagship on a (2, 2)
+    mesh against run_point_cloud_fused of each clip."""
+    import pickle
+    import types
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from slamtpu_torch.parallel.distributed import _free_port
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud_fused
+    from slamtpu_torch.pipeline.vo import VoConfig, run_vo
+
+    frames, cam = scene.frames, scene.intrinsics
+    run = run_vo(frames[:PARALLEL_FRAMES], cam, VoConfig(), chunk_size=CHUNK, seed=0, device=device)
+    fused = [run_point_cloud_fused(frames[a:b], cam, PointCloudConfig(), chunk_size=CHUNK, seed=i, device=device)
+             for i, (a, b) in enumerate(PARALLEL_CLIPS)]
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        np.save(os.path.join(out_dir, "frames.npy"), frames)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_parallel_rank, args=(PARALLEL_RANKS, _free_port(), out_dir, device, cam,
+                                                       PARALLEL_FRAMES, PARALLEL_CLIPS, CHUNK),
+                                 nprocs=PARALLEL_RANKS, join=False, start_method="spawn")
+        deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):  # raises when a rank fails
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(f"the {PARALLEL_RANKS} ranks did not finish in {PARALLEL_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        wall_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(PARALLEL_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+
+    per_rank = PARALLEL_FRAMES // PARALLEL_RANKS
+    got = {k: np.concatenate([r["vo"][k] for r in ranks]) for k in ranks[0]["vo"]}
+    gaps = _check_sharded_vo(got, run, f"{PARALLEL_RANKS}-rank sharded_vo_step", 1e-5, 1e-4)
+    for r in ranks:
+        if r["slice"] != (r["rank"] * per_rank, (r["rank"] + 1) * per_rank):
+            raise AssertionError(f"rank {r['rank']} covers {r['slice']}")
+    batched = []
+    for b, ref in enumerate(fused):
+        mine = types.SimpleNamespace(**ranks[0]["batched"][b])
+        mine.map_state = types.SimpleNamespace(valid=mine.valid)
+        batched.append(_check_flagship(mine, ref, f"{PARALLEL_RANKS}-rank batched clip {b} vs fused"))
+    r0 = ranks[0]
+    coll = {phase: {k: sum(v) for k, v in r0[f"{phase}_collectives"].items()} for phase in ("vo", "batched")}
+    share = {phase: sum(coll[phase].values()) / r0[f"{phase}_s"] for phase in ("vo", "batched")}
+    log(f"parallel, {PARALLEL_RANKS} Gloo ranks sharing the card: {wall_s:.2f} s from spawn to the last exit; "
+        f"sharded_vo_step (1, {PARALLEL_RANKS}) on {PARALLEL_FRAMES} frames in {[round(r['vo_s'], 4) for r in ranks]} s "
+        f"a rank = {PARALLEL_FRAMES / max(r['vo_s'] for r in ranks):.2f} frames/s; each block equal to run_vo's "
+        f"(success, matches, keyframes; rotations within {gaps['rotation_max_abs_diff']:.3g}, positions "
+        f"{gaps['position_rel_gap']:.3g} relative); rank 0's collectives {coll['vo']} s, "
+        f"{100 * share['vo']:.1f} % of its step; batched flagship (2, 2) on clips {list(PARALLEL_CLIPS)} in "
+        f"{[round(r['batched_s'], 4) for r in ranks]} s, vs fused {batched}; rank 0's collectives "
+        f"{coll['batched']} s, {100 * share['batched']:.1f} %; launches per rank "
+        f"{[r['vo_launches'] for r in ranks]} / {[r['batched_launches'] for r in ranks]}")
+    paths = {"parallel_4rank_sharded_vo_per_rank": r0["vo_launches"],
+             "parallel_4rank_batched_flagship_per_rank": r0["batched_launches"]}
+    return paths, dict(wall_s=wall_s, vo_s=[r["vo_s"] for r in ranks], batched_s=[r["batched_s"] for r in ranks],
+                       vo_gaps=gaps, batched_vs_fused=batched, rank0_collectives_s=coll, rank0_collective_share=share,
+                       rank0_collective_calls={k: {n: len(v) for n, v in r0[f"{k}_collectives"].items()}
+                                               for k in ("vo", "batched")})
+
+
+def parallel_phase(torch, scene, device: str = "cuda"):
+    """The multi-device layer on the card: one NCCL rank, then four Gloo
+    ranks sharing it."""
+    t0 = time.perf_counter()
+    paths, one = parallel_one_rank(torch, scene, device)
+    paths4, four = parallel_four_ranks(torch, scene, device)
+    seconds = time.perf_counter() - t0
+    log(f"parallel phase: {seconds:.1f} s")
+    return {**paths, **paths4}, dict(one_rank=one, four_ranks=four, seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -1305,12 +1616,14 @@ def main() -> int:
         raise AssertionError(f"the main paths launched the kernels differently: {paths}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    parallel_launches, parallel = parallel_phase(torch, scene)
+    paths.update(parallel_launches)  # held to their own counts: 9 for one rank, 2 a rank for four
     ba = ba_phase(torch)
     flagship_ref = flagship_reference_phase(torch)
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     log(json.dumps({"vo": vo, "flagship": flagship, "fused_flagship": fused, "depth": depth, "cli": cli,
-                    "vo_options": vo_options, "ba": ba,
+                    "vo_options": vo_options, "parallel": parallel, "ba": ba,
                     "flagship_reference": flagship_ref, "compass": compass, "kernel_times_ms": times,
                     "launches_by_path": paths, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -112,16 +112,24 @@ def _index_draws(draws: PairDraws, idx) -> PairDraws:
     return PairDraws(*[None if d is None else torch.as_tensor(d[idx]) for d in draws])
 
 
-def _frontend(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, frames, intrinsics: CameraIntrinsics,
-              config: VoConfig, step_mask, draws: PairDraws, prev_frame):
-    """The chunk step over B sequences at once: frames [B, C, H, W], carry
-    fields with a leading [B], draws [B, C, ...]. The detector sees all B*C
-    frames in one call (one launch of each kernel), matching and RANSAC all
-    B*C pairs as one batch; the keyframe scan steps the B states together."""
-    device = global_pose.device
+def _detect(frames, config: VoConfig) -> OrbFeatures:
+    """Features of frames [B, C, H, W] as [B, C, K, ...]: one detector call
+    over all B*C frames (one launch of each kernel), each sequence's pyramid
+    built alone."""
     b, c = frames.shape[:2]
-    feats_new = detect_and_compute(frames.reshape(b * c, *frames.shape[2:]), config.orb, groups=b)
-    feats_new = OrbFeatures(*[x.reshape(b, c, *x.shape[1:]) for x in feats_new])
+    feats = detect_and_compute(frames.reshape(b * c, *frames.shape[2:]), config.orb, groups=b)
+    return OrbFeatures(*[x.reshape(b, c, *x.shape[1:]) for x in feats])
+
+
+def _pair_poses(prev_feats: OrbFeatures, feats_new: OrbFeatures, frames, intrinsics: CameraIntrinsics,
+                config: VoConfig, step_mask, draws: PairDraws, prev_frame):
+    """The pose part of the chunk step: each frame of feats_new [B, C, ...]
+    against the one before it (prev_feats [B, ...] before the first),
+    matching, sub-pixel refinement, per-octave sigma and RANSAC of all B*C
+    pairs as one batch. Returns (rotation [B, C, 3, 3], translation [B, C, 3],
+    num_good, num_inliers, success, all [B, C])."""
+    device = frames.device
+    b, c = frames.shape[:2]
     feats_all = OrbFeatures(*[torch.cat([p[:, None], f], dim=1) for p, f in zip(prev_feats, feats_new)])
 
     def pairs(x, first: bool):
@@ -158,33 +166,52 @@ def _frontend(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, fra
     flat_draws = PairDraws(*[None if d is None else d.reshape(b * c, *d.shape[2:]) for d in draws])
     poses = estimate_relative_pose(intrinsics, pts1, pts2, mask=good.mask, config=config.ransac,
                                    sigma=sigma, uniforms=flat_draws)
-    rotation, translation = poses.rotation.reshape(b, c, 3, 3), poses.translation.reshape(b, c, 3)
-    num_good = num_good.reshape(b, c)
     success = (poses.valid & enough).reshape(b, c)
     if step_mask is not None:
         success = success & torch.as_tensor(step_mask, dtype=torch.bool, device=device)
+    return (poses.rotation.reshape(b, c, 3, 3), poses.translation.reshape(b, c, 3), num_good.reshape(b, c),
+            poses.num_inliers.reshape(b, c), success)
 
-    # Keyframe selection: serial over the steps, all sequences at once;
-    # failed frames leave their state untouched.
+
+def _keyframe_scan(config: KeyframeConfig, kf_state: KeyframeState, rotation, translation, num_good, success):
+    """Keyframe selection, serial over the C steps of [B, C] inputs, all
+    sequences at once; failed frames leave their state untouched. Returns
+    (state after the last step, is_keyframe [B, C])."""
     state = kf_state
     is_kf = []
-    for i in range(c):
-        stepped, kf = keyframe_step(config.keyframe, state, rotation[:, i], translation[:, i], num_good[:, i])
+    for i in range(success.shape[1]):
+        stepped, kf = keyframe_step(config, state, rotation[:, i], translation[:, i], num_good[:, i])
         ok = success[:, i]
         state = KeyframeState(*[torch.where(ok, a, s) for a, s in zip(stepped, state)])
         is_kf.append(kf & ok)
-    is_kf = torch.stack(is_kf, dim=1)
+    return state, torch.stack(is_kf, dim=1)
 
-    # Trajectory: identity for non-keyframes, then one prefix product per
-    # sequence.
-    rel = se3_matrix(rotation, translation).to(global_pose.dtype)
-    eye = torch.eye(4, dtype=rel.dtype, device=device)
-    rel = torch.where(is_kf[..., None, None], rel, eye)
+
+def _keyframe_transforms(rotation, translation, is_kf, dtype):
+    """The relative 4x4 transforms [..., 4, 4] in `dtype`, identity where a
+    step is no keyframe (the trajectory advances on keyframes only)."""
+    rel = se3_matrix(rotation, translation).to(dtype)
+    eye = torch.eye(4, dtype=rel.dtype, device=rel.device)
+    return torch.where(is_kf[..., None, None], rel, eye)
+
+
+def _frontend(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, frames, intrinsics: CameraIntrinsics,
+              config: VoConfig, step_mask, draws: PairDraws, prev_frame):
+    """The chunk step over B sequences at once: frames [B, C, H, W], carry
+    fields with a leading [B], draws [B, C, ...]. The detector sees all B*C
+    frames in one call (one launch of each kernel), matching and RANSAC all
+    B*C pairs as one batch; the keyframe scan steps the B states together."""
+    feats_new = _detect(frames, config)
+    rotation, translation, num_good, num_inliers, success = _pair_poses(
+        prev_feats, feats_new, frames, intrinsics, config, step_mask, draws, prev_frame)
+    state, is_kf = _keyframe_scan(config.keyframe, kf_state, rotation, translation, num_good, success)
+
+    # Trajectory: one prefix product per sequence from the carried pose.
+    rel = _keyframe_transforms(rotation, translation, is_kf, global_pose.dtype)
     globals_ = compose_relative_transforms(torch.cat([global_pose[:, None], rel], dim=1))[:, 1:]
 
     new_prev = OrbFeatures(*[x[:, -1] for x in feats_new])
-    result = VoChunkResult(rotation, translation, num_good, poses.num_inliers.reshape(b, c), success, is_kf,
-                           globals_)
+    result = VoChunkResult(rotation, translation, num_good, num_inliers, success, is_kf, globals_)
     return (new_prev, state, globals_[:, -1]), result, feats_new
 
 

@@ -287,7 +287,8 @@ _SLICE_MODULES = [
     "slamtpu_torch.utils.viz", "slamtpu_torch.io.kitti", "slamtpu_torch.io.native_loader", "slamtpu_torch.io.real",
     "slamtpu_torch.cli.visual_odometry", "slamtpu_torch.cli.point_cloud", "slamtpu_torch.cli.main",
     "slamtpu_torch.cli.visualize_features", "slamtpu_torch.cli.bundle_adjustment",
-    "slamtpu_torch.ops.homography", "slamtpu_torch.ops.patch_refine",
+    "slamtpu_torch.ops.homography", "slamtpu_torch.ops.patch_refine", "slamtpu_torch.parallel.mesh",
+    "slamtpu_torch.parallel.distributed", "slamtpu_torch.parallel.sharded", "slamtpu_torch.parallel.flagship",
 ]
 
 
