@@ -1,0 +1,530 @@
+"""The fused flagship runner `run_point_cloud_fused` (copied from the
+port's pipeline/point_cloud.py without the host loop, global BA,
+checkpoints, resume and exports).
+
+Phase 1, per chunk of C frame pairs: the VO frontend (features, matching,
+RANSAC pose, keyframe flags). Frame 0 is detected on its own first.
+
+Phase 2, a host loop over the keyframes of the chunk with the state on the
+device: re-match the previous KEYFRAME against the current one, triangulate
+the matches, insert them into the fixed-capacity map, re-associate the
+map's landmarks with the current features (logging those observations),
+and every `ba_interval` keyframes run bundle adjustment over the last
+`ba_window` keyframes; every `prune_interval` keyframes prune landmarks
+seen fewer than `min_observations` times. Keyframe poses are a
+world-to-camera chain T_wc(k) = T_rel(k) @ T_wc(k-1) in `pose_dtype`, and
+BA results are written back into the chain and the map.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..feature.detector import OrbFeatures, detect_and_compute
+from ..feature.matcher import FeatureMatcher
+from ..mapping.bundle_adjustment import BaConfig, ObservationBatch, ba_solve
+from ..mapping.keyframe import KeyframeConfig, KeyframeState
+from ..mapping.map import (
+    MapState,
+    _set_rows,
+    map_find_matches,
+    map_prune,
+    map_update_observations,
+)
+from ..mapping.triangulation import MapPoint, triangulate_points
+from ..odometry.camera import CameraIntrinsics
+from ..odometry.trajectory import Trajectory
+from ..ops.hamming import descriptor_bits
+from .vo import VoConfig, vo_frontend
+
+__all__ = ["PointCloudConfig", "PointCloudResult", "run_point_cloud_fused"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PointCloudConfig:
+    """The JAX package's PointCloudConfig, same defaults."""
+
+    vo: VoConfig = VoConfig(keyframe=KeyframeConfig(min_translation=0.03, min_rotation=0.03,
+                                                    min_match_ratio=0.7, max_frames=3))
+    ba_interval: int = 5
+    ba_window: int = 5
+    prune_interval: int = 10
+    map_capacity: int = 16384
+    max_ba_observations: int = 4096
+    max_ba_landmarks: int = 2048  # distinct landmarks per BA window
+    max_obs_per_kf: int = 1024  # fused runner: observation slots per keyframe
+    # BA observation gate: drop re-association matches whose landmark
+    # reprojects more than this many pixels from the matched keypoint
+    # (the loose descriptor-only match lets wrong associations with 100 px+
+    # residuals through, and they poison the solve). 0 disables.
+    obs_max_reproj_px: float = 8.0
+    ba: BaConfig = BaConfig()
+    min_observations: int = 2
+
+
+@dataclasses.dataclass
+class PointCloudResult:
+    map_state: MapState
+    trajectory: Trajectory  # reference-style composition, for the JSON artifact
+    keyframe_rotations: np.ndarray  # [N_kf, 3, 3] world-to-camera
+    keyframe_translations: np.ndarray  # [N_kf, 3]
+    keyframe_frame_idx: np.ndarray  # [N_kf] frame index of each keyframe
+    ba_runs: int
+    total_frames: int
+    successful_frames: int
+    # Observation log (kf [N] int32, map slot [N] int32, pixel [N, 2] f32,
+    # landmark id at logging time [N] int32).
+    observations: tuple = None
+
+    def points(self):
+        valid = self.map_state.valid.cpu().numpy()
+        pos = self.map_state.positions.cpu().numpy()
+        desc = self.map_state.descriptors.cpu().numpy()
+        obs = self.map_state.observations.cpu().numpy()
+        ids = self.map_state.ids.cpu().numpy()
+        return [MapPoint(position=pos[i], descriptor=desc[i], observations=int(obs[i]), id=int(ids[i]))
+                for i in np.nonzero(valid)[0]]
+
+    def stable_points(self, min_observations: int = 2):
+        return [p for p in self.points() if p.observations >= min_observations]
+
+def _match_keyframes(prev_desc, prev_mask, desc, mask):
+    """Previous keyframe vs current frame, with the reference's ratio filter."""
+    matcher = FeatureMatcher()
+    return matcher.filter_good_matches(matcher.match_descriptors(prev_desc, desc, prev_mask, mask), 2.0)
+
+
+def _reassociate(state: MapState, intrinsics, desc, mask, xy, pose, max_reproj_px: float, map_bits=None,
+                 map_pops=None):
+    """Match the map against one keyframe's features. Returns the new state
+    (observation counts raised), the matched keypoint per slot and the
+    slots whose match passes the reprojection gate (these are logged).
+    map_bits/map_pops: the map's unpacked descriptors, when carried."""
+    idx, good, dist = map_find_matches(state, intrinsics, desc, mask, pose[0], pose[1], map_bits=map_bits,
+                                       map_pops=map_pops, frame_xy=xy)
+    state = map_update_observations(state, good)
+    if max_reproj_px:
+        good = good & (dist < max_reproj_px)
+    return state, idx, good
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+
+def _first_features(frames, config: PointCloudConfig, dev) -> OrbFeatures:
+    """Frame 0's features (one launch of each kernel)."""
+    feats0 = detect_and_compute(torch.as_tensor(frames[:1]).to(dev), config.vo.orb)
+    return OrbFeatures(*[x[0] for x in feats0])
+
+
+def _ba_window_solve(positions, rot_w, trans_w, pose_mask, slots, l_mask, kf_idx, pt_idx, pixels, obs_mask,
+                     intrinsics, ba_config, fix_first_pose):
+    """Windowed BA on compact shapes: the window's poses [P_w] and its
+    observed landmarks [L_w] gathered from the map by slot; optimised
+    landmarks are written back into the full positions.
+
+    On CUDA the segment sums run in gather mode with the window size as the
+    observer bound: a landmark is observed at most once per window keyframe
+    (checked by the caller), so no observation is dropped. On the CPU they
+    are the scatter-adds of the JAX package's CPU path.
+    """
+    obs = ObservationBatch(kf_idx, pt_idx, pixels, obs_mask)
+    seg_kw = dict(segment_method="gather", gather_k_pt=rot_w.shape[0]) if rot_w.device.type == "cuda" else {}
+    new_rot, new_trans, new_pts, _, _ = ba_solve(
+        intrinsics, rot_w, trans_w, positions[slots].to(rot_w.dtype), obs, ba_config,
+        fix_first_pose=fix_first_pose, pose_mask=pose_mask, **seg_kw)
+    # Padding rows of `slots` are 0: route them to a dropped scratch row so
+    # slot 0 is written once, with its optimised value.
+    safe_slots = torch.where(l_mask, slots, positions.shape[0])
+    return new_rot, new_trans, _set_rows(positions, safe_slots, new_pts.to(positions.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Fused phase 2 (counterpart of the JAX package's scan-fused runner).
+#
+# The map, the free-slot table, the unpacked map descriptors and the BA
+# observation ring stay on the device for the whole run, and each keyframe
+# step returns compact outputs that are stacked per chunk and fetched once,
+# after the last chunk. The JAX scan becomes a Python loop over the chunk's
+# steps: the host reads the chunk's keyframe flags once, and one scalar
+# (does the ring hold an observation?) on the steps where BA is due. The
+# keyframe count, and with it the BA and prune predicates, is therefore
+# known on the host, and BA and the free-table rebuild run only on the steps
+# whose predicate holds, as lax.cond runs only the taken branch. Nothing
+# else in a step reads the device: dropped scatter rows go to a scratch row
+# (mapping/map.py::_set_rows), so every kept row is written once and two
+# CUDA runs agree.
+# ---------------------------------------------------------------------------
+
+
+class _FusedCarry(NamedTuple):
+    """Phase 2's state between keyframe steps: tensors on the run's device,
+    except kf_count, which the host keeps."""
+
+    map_state: MapState
+    # Free slots in index order as a rank -> slot table (cap = none) and the
+    # next unconsumed rank: rebuilt only on prune steps, consumed in order
+    # by inserts (between prunes the free set only shrinks from the front).
+    free_slots: torch.Tensor  # [cap] int32
+    free_head: torch.Tensor  # int32 scalar
+    # Unpacked map descriptors for re-association (ops/hamming.py layout),
+    # updated on the rows each insert writes; freed slots keep stale bits,
+    # which map_find_matches masks by validity.
+    map_bits: torch.Tensor  # [cap, 256] bf16
+    map_pops: torch.Tensor  # [cap] f32
+    prev_xy: torch.Tensor  # [K, 2] the previous keyframe's keypoints
+    prev_desc: torch.Tensor  # [K, 32]
+    prev_mask: torch.Tensor  # [K]
+    prev_rot: torch.Tensor  # [3, 3] world-to-camera of the previous keyframe (pose dtype)
+    prev_trans: torch.Tensor  # [3]
+    kf_count: int  # keyframes so far, keyframe 0 included
+    ring_rot: torch.Tensor  # [W, 3, 3] the last W keyframe poses, oldest first
+    ring_trans: torch.Tensor  # [W, 3]
+    ring_kf: torch.Tensor  # [W] int32 global keyframe index (-1 = empty)
+    ring_slots: torch.Tensor  # [W, O] int32 observed map slots
+    ring_ids: torch.Tensor  # [W, O] int32 landmark id at observation time
+    ring_px: torch.Tensor  # [W, O, 2] f32 observed pixels
+    ring_mask: torch.Tensor  # [W, O] bool
+
+
+class _FusedStepOut(NamedTuple):
+    """One step's outputs (stacked over a chunk's steps by
+    _fused_phase2_chunk). kf_idx and ba_flag are decided on the host and
+    stay there; the rest are device tensors."""
+
+    kf_idx: int  # -1 when the step created no keyframe
+    new_rot: torch.Tensor  # [3, 3] the new keyframe's pose before BA
+    new_trans: torch.Tensor  # [3]
+    ba_flag: bool
+    ring_rot: torch.Tensor  # [W, 3, 3] after BA
+    ring_trans: torch.Tensor  # [W, 3]
+    ring_kf: torch.Tensor  # [W]
+    obs_slots: torch.Tensor  # [O]
+    obs_ids: torch.Tensor  # [O]
+    obs_px: torch.Tensor  # [O, 2]
+    obs_mask: torch.Tensor  # [O]
+
+
+def _free_table(state: MapState):
+    """Free slots in index order as a rank -> slot table (cap = no slot),
+    and rank 0: the ranking map_insert computes per call."""
+    cap, dev = state.capacity, state.valid.device
+    free = ~state.valid
+    free_rank = torch.cumsum(free, dim=0, dtype=torch.int32) - 1
+    table = _set_rows(torch.full((cap,), cap, dtype=torch.int32, device=dev), torch.where(free, free_rank, cap),
+                      torch.arange(cap, dtype=torch.int32, device=dev))
+    return table, torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def _map_insert_at(state: MapState, free_slots, free_head, positions, descriptors, mask):
+    """map_insert consuming the carried free table: the same slots and ids.
+    Returns (new state, new free_head, slot per row (cap = dropped))."""
+    cap = state.capacity
+    rank = torch.cumsum(mask, dim=0, dtype=torch.int32) - 1
+    pos = free_head + rank
+    # Table entries past the free count hold cap. Ranks past the table's end
+    # would clamp onto its last entry, a live slot when the table was built
+    # on an empty map: they are dropped too, as map_insert drops rows beyond
+    # the free count.
+    slot = torch.where(mask & (pos < cap), free_slots[torch.clamp(pos, 0, cap - 1)], cap)
+    n_new = torch.sum(mask, dtype=torch.int32)
+    new_state = MapState(
+        positions=_set_rows(state.positions, slot, positions),
+        descriptors=_set_rows(state.descriptors, slot, descriptors),
+        observations=_set_rows(state.observations, slot, 1),
+        ids=_set_rows(state.ids, slot, state.next_id + rank),
+        valid=_set_rows(state.valid, slot, True),
+        next_id=state.next_id + n_new,
+    )
+    return new_state, free_head + n_new, slot
+
+
+def _fused_carry_init(config: PointCloudConfig, feats0: OrbFeatures, pose_dtype) -> _FusedCarry:
+    """An empty map and a ring holding keyframe 0 (identity) as its newest
+    entry."""
+    dev = feats0.xy.device
+    w, o_cap = config.ba_window, config.max_obs_per_kf
+    ring_kf = torch.cat([torch.full((w - 1,), -1, dtype=torch.int32, device=dev),
+                         torch.zeros((1,), dtype=torch.int32, device=dev)])
+    empty = MapState.empty(config.map_capacity, torch.float32, dev)
+    table0, head0 = _free_table(empty)
+    bits0, pops0 = descriptor_bits(empty.descriptors)
+    eye = torch.eye(3, dtype=pose_dtype, device=dev)
+    return _FusedCarry(
+        map_state=empty, free_slots=table0, free_head=head0, map_bits=bits0, map_pops=pops0,
+        prev_xy=feats0.xy, prev_desc=feats0.descriptors, prev_mask=feats0.mask,
+        prev_rot=eye, prev_trans=torch.zeros((3,), dtype=pose_dtype, device=dev), kf_count=1,
+        ring_rot=eye.expand(w, 3, 3).clone(), ring_trans=torch.zeros((w, 3), dtype=pose_dtype, device=dev),
+        ring_kf=ring_kf, ring_slots=torch.zeros((w, o_cap), dtype=torch.int32, device=dev),
+        ring_ids=torch.full((w, o_cap), -1, dtype=torch.int32, device=dev),
+        ring_px=torch.zeros((w, o_cap, 2), dtype=torch.float32, device=dev),
+        ring_mask=torch.zeros((w, o_cap), dtype=torch.bool, device=dev),
+    )
+
+
+def _fused_window_ba(state: MapState, ring_rot, ring_trans, ring_kf, ring_slots, ring_ids, ring_px, ring_mask,
+                     intrinsics, config: PointCloudConfig):
+    """Windowed BA over the ring's poses, in the ring's dtype. Returns (ring
+    rotations, ring translations, map positions) after the solve.
+
+    The window observes at most W*O slots; they are deduplicated (sort,
+    first occurrence, sort again) into l_max compact rows and each
+    observation's landmark is found by a binary search: the compact problem
+    the host loop builds, without a host read. The gather-mode observer
+    bound (the window size) holds by construction: a ring row's slots are
+    compacted from a per-slot mask, so a landmark appears at most once per
+    keyframe; the host loop's check of that is dropped here, as it would
+    read the device.
+    """
+    w, o_cap = config.ba_window, config.max_obs_per_kf
+    live = ring_kf >= 0
+    # Drop observations whose slot was pruned or recycled since recording.
+    obs_ok = ring_mask & live[:, None] & state.valid[ring_slots] & (state.ids[ring_slots] == ring_ids)
+    l_max = min(config.max_ba_landmarks, w * o_cap)
+    big = state.capacity
+    flat_slots = ring_slots.reshape(-1)
+    flat_ok = obs_ok.reshape(-1)
+    skeys = torch.sort(torch.where(flat_ok, flat_slots, big)).values
+    firsts = torch.cat([torch.ones((1,), dtype=torch.bool, device=skeys.device), skeys[1:] != skeys[:-1]])
+    uniq = torch.sort(torch.where(firsts, skeys, big)).values[:l_max]
+    l_mask = uniq < big
+    pt_c = torch.clamp(torch.searchsorted(uniq, flat_slots), 0, l_max - 1)
+    ok_c = flat_ok & (uniq[pt_c] == flat_slots)
+    # Gauge and scale anchor: the window's two oldest live poses are frozen.
+    live_rank = torch.cumsum(live, dim=0, dtype=torch.int32) - 1
+    pose_free = live & (live_rank >= 2)
+    kf_of_obs = torch.arange(w, device=ring_kf.device)[:, None].expand(w, o_cap).reshape(-1)
+    new_rot, new_trans, positions = _ba_window_solve(
+        state.positions, ring_rot, ring_trans, pose_free, torch.where(l_mask, uniq, 0), l_mask, kf_of_obs, pt_c,
+        ring_px.reshape(-1, 2).to(ring_rot.dtype), ok_c, intrinsics, config.ba, False)
+    return new_rot, new_trans, positions
+
+
+def _kf_step(carry: _FusedCarry, xy, desc, mask, rel_r, rel_t, intrinsics, config: PointCloudConfig):
+    """One keyframe: re-match against the previous keyframe, triangulate and
+    insert, re-associate and log observations into the ring, then BA and
+    prune when due. Returns (new carry, step outputs)."""
+    state = carry.map_state
+    dev = xy.device
+    o_cap = config.max_obs_per_kf
+    good = _match_keyframes(carry.prev_desc, carry.prev_mask, desc, mask)
+    xy2 = xy[good.train_idx]
+    desc2 = desc[good.train_idx]
+
+    # Correct world-to-camera chain in the pose dtype (the frontend's f32
+    # relative pose is promoted exactly); triangulation stays f32.
+    rel_r = rel_r.to(carry.prev_rot.dtype)
+    new_r = rel_r @ carry.prev_rot
+    new_t = rel_r @ carry.prev_trans + rel_t.to(carry.prev_rot.dtype)
+    r32, t32 = new_r.float(), new_t.float()
+    xyz, tri_valid = triangulate_points(intrinsics, (carry.prev_rot.float(), carry.prev_trans.float()), (r32, t32),
+                                        carry.prev_xy, xy2)
+    state, free_head, slot_i = _map_insert_at(state, carry.free_slots, carry.free_head, xyz, desc2,
+                                              tri_valid & good.mask)
+    ins_bits, ins_pops = descriptor_bits(desc2)
+    map_bits = _set_rows(carry.map_bits, slot_i, ins_bits)
+    map_pops = _set_rows(carry.map_pops, slot_i, ins_pops)
+
+    # Re-associate the map with this keyframe: the observation count rises
+    # for every match, the ring logs those within the reprojection gate.
+    state, midx, mgood = _reassociate(state, intrinsics, desc, mask, xy, (r32, t32), config.obs_max_reproj_px,
+                                      map_bits, map_pops)
+
+    # The first o_cap matched slots in index order as observation rows
+    # (padding rows point at slot 0, unmasked).
+    obs_rank = torch.cumsum(mgood, dim=0, dtype=torch.int32) - 1
+    slots = _set_rows(torch.zeros((o_cap,), dtype=torch.int32, device=dev),
+                      torch.where(mgood & (obs_rank < o_cap), obs_rank, o_cap),
+                      torch.arange(state.capacity, dtype=torch.int32, device=dev))
+    omask = mgood[slots] & (torch.arange(o_cap, device=dev) <= obs_rank[-1])
+    opx = xy[midx[slots]]
+    oids = state.ids[slots]
+
+    kf_idx = carry.kf_count
+    new_count = kf_idx + 1
+    ring_rot = torch.cat([carry.ring_rot[1:], new_r[None]])
+    ring_trans = torch.cat([carry.ring_trans[1:], new_t[None]])
+    ring_kf = torch.cat([carry.ring_kf[1:], torch.full((1,), kf_idx, dtype=torch.int32, device=dev)])
+    ring_slots = torch.cat([carry.ring_slots[1:], slots[None]])
+    ring_ids = torch.cat([carry.ring_ids[1:], oids[None]])
+    ring_px = torch.cat([carry.ring_px[1:], opx[None]])
+    ring_mask = torch.cat([carry.ring_mask[1:], omask[None]])
+
+    # Windowed BA every ba_interval keyframes, when the window logged an
+    # observation: the step's one host read.
+    ba_flag = bool(config.ba_interval and new_count % config.ba_interval == 0 and ring_mask.any())
+    if ba_flag:
+        ring_rot, ring_trans, positions = _fused_window_ba(state, ring_rot, ring_trans, ring_kf, ring_slots,
+                                                           ring_ids, ring_px, ring_mask, intrinsics, config)
+        state = state._replace(positions=positions)
+
+    # Prune every prune_interval keyframes; pruning frees slots, so the free
+    # table is rebuilt on the same steps only.
+    free_slots = carry.free_slots
+    if config.prune_interval and new_count % config.prune_interval == 0:
+        state = map_prune(state, config.min_observations)
+        free_slots, free_head = _free_table(state)
+
+    new_carry = _FusedCarry(
+        map_state=state, free_slots=free_slots, free_head=free_head, map_bits=map_bits, map_pops=map_pops,
+        prev_xy=xy, prev_desc=desc, prev_mask=mask,
+        # The next keyframe chains off the ring's newest pose: BA may have
+        # just moved it (the host loop chains off its BA-updated chain too).
+        prev_rot=ring_rot[-1], prev_trans=ring_trans[-1], kf_count=new_count,
+        ring_rot=ring_rot, ring_trans=ring_trans, ring_kf=ring_kf, ring_slots=ring_slots, ring_ids=ring_ids,
+        ring_px=ring_px, ring_mask=ring_mask,
+    )
+    out = _FusedStepOut(kf_idx, new_r, new_t, ba_flag, ring_rot, ring_trans, ring_kf, slots, oids, opx, omask)
+    return new_carry, out
+
+
+def _fused_phase2_chunk(carry: _FusedCarry, feats: OrbFeatures, rel_rot, rel_trans, is_kf, intrinsics,
+                        config: PointCloudConfig):
+    """The keyframe loop over one chunk of C steps. is_kf [C] bool is host
+    data (the frontend's keyframe flags, which include pose success).
+    Returns (new carry, _FusedStepOut stacked over the steps: kf_idx and
+    ba_flag as CPU tensors, the rest on the device). A step without a
+    keyframe leaves the carry as it is and yields the carry's poses and
+    ring with kf_idx -1 and no observation."""
+    skipped_obs = None
+    outs = []
+    for i, kf in enumerate(np.asarray(is_kf, dtype=bool)):
+        if kf:
+            carry, out = _kf_step(carry, feats.xy[i], feats.descriptors[i], feats.mask[i], rel_rot[i], rel_trans[i],
+                                  intrinsics, config)
+        else:
+            if skipped_obs is None:
+                o_cap, dev = config.max_obs_per_kf, carry.ring_kf.device
+                skipped_obs = (torch.zeros((o_cap,), dtype=torch.int32, device=dev),
+                               torch.full((o_cap,), -1, dtype=torch.int32, device=dev),
+                               torch.zeros((o_cap, 2), dtype=torch.float32, device=dev),
+                               torch.zeros((o_cap,), dtype=torch.bool, device=dev))
+            out = _FusedStepOut(-1, carry.prev_rot, carry.prev_trans, False, carry.ring_rot, carry.ring_trans,
+                                carry.ring_kf, *skipped_obs)
+        outs.append(out)
+    stacked = {name: torch.stack(f) for name, f in zip(_FusedStepOut._fields, zip(*outs))
+               if name not in ("kf_idx", "ba_flag")}
+    return carry, _FusedStepOut(kf_idx=torch.tensor([o.kf_idx for o in outs], dtype=torch.int32),
+                                ba_flag=torch.tensor([o.ba_flag for o in outs]), **stacked)
+
+
+def _flagship_chunk(carry1, carry2: _FusedCarry, block, intrinsics, config: PointCloudConfig, uniforms=None,
+                    seed: int = 0, first_step: int = 0, prev_frame=None):
+    """The VO frontend over one chunk, then phase 2 over its keyframes.
+    Reads the chunk's keyframe flags on the host once. Returns (frontend
+    carry, phase-2 carry, VoChunkResult, stacked step outputs)."""
+    carry1, res, feats = vo_frontend(*carry1, block, intrinsics, config.vo, uniforms=uniforms, seed=seed,
+                                     first_step=first_step, prev_frame=prev_frame)
+    is_kf = res.is_keyframe.cpu().numpy()
+    carry2, outs = _fused_phase2_chunk(carry2, feats, res.rotations, res.translations, is_kf, intrinsics, config)
+    return carry1, carry2, res, outs
+
+
+def run_point_cloud_fused(frames, intrinsics: CameraIntrinsics, config: PointCloudConfig = PointCloudConfig(),
+                          chunk_size: int | None = None, seed: int = 0, device=None, uniforms=None,
+                          pose_dtype: torch.dtype = torch.float32) -> PointCloudResult:
+    """The flagship over a clip [T, H, W] with phase 2 kept on the device.
+    chunk_size: frame pairs per frontend call (None = all). RANSAC draws
+    come from `seed`, one generator per global pair index, or from
+    `uniforms` [T-1, iters, K]."""
+    dev = resolve_device(device)
+    t_total = frames.shape[0]
+    n_pairs = t_total - 1
+    chunk = chunk_size or max(n_pairs, 1)
+
+    feats0 = _first_features(frames, config, dev)
+    carry2 = _fused_carry_init(config, feats0, pose_dtype)
+    trajectory = Trajectory()
+    init_chain = init_obs = None
+    carry1 = (feats0, KeyframeState.initial(dev), torch.as_tensor(trajectory.global_pose, dtype=pose_dtype,
+                                                                  device=dev))
+
+    step_outs, res_list = [], []
+    for start in range(0, n_pairs, chunk):
+        stop = min(start + chunk, n_pairs)
+        block = torch.as_tensor(frames[start + 1 : stop + 1]).to(dev)
+        draws = None if uniforms is None else torch.as_tensor(uniforms[start:stop]).to(dev)
+        prev_frame = torch.as_tensor(frames[start]).to(dev) if config.vo.refine_matches else None
+        carry1, carry2, res, outs = _flagship_chunk(carry1, carry2, block, intrinsics, config, draws, seed,
+                                                    first_step=start + 1, prev_frame=prev_frame)
+        step_outs.append(outs)
+        res_list.append(res)
+
+    # One fetch at the end: every output leaf, concatenated over the chunks.
+    outs = rot_all = trans_all = iskf_all = None
+    successful = 0
+    if step_outs:  # empty for a single-frame clip (keyframe 0 only)
+        outs = _FusedStepOut(*[torch.cat(parts).cpu().numpy() for parts in zip(*step_outs)])
+        rot_all, trans_all, iskf_all, success = (torch.cat(parts).cpu().numpy() for parts in zip(
+            *[(r.rotations, r.translations, r.is_keyframe, r.success) for r in res_list]))
+        successful = int(success.sum())
+    kf_rots, kf_trans, kf_frames, obs, ba_runs = _phase2_host_reconstruct(
+        outs, rot_all, trans_all, iskf_all, trajectory, config, init_chain=init_chain, init_obs=init_obs)
+    return PointCloudResult(
+        map_state=carry2.map_state,
+        trajectory=trajectory,
+        keyframe_rotations=np.stack(kf_rots),
+        keyframe_translations=np.stack(kf_trans),
+        keyframe_frame_idx=np.asarray(kf_frames),
+        ba_runs=ba_runs,
+        total_frames=t_total,
+        successful_frames=successful,
+        observations=(np.asarray(obs[0], np.int32), np.asarray(obs[1], np.int32),
+                      np.asarray(obs[2], np.float32).reshape(-1, 2), np.asarray(obs[3], np.int32)),
+    )
+
+
+def _phase2_host_reconstruct(outs, rot_all, trans_all, iskf_all, trajectory, config, init_chain=None,
+                             init_obs=None):
+    """The keyframe chain and observation log from the fused steps' outputs
+    (concatenated over all chunks, numpy). A copy of the JAX package's.
+
+    Returns (kf_rots, kf_trans, kf_frames, (obs_kf, obs_pt, obs_px, obs_id),
+    ba_runs); fills `trajectory` with the reference-style artifact.
+    Applying the ring rewrites in step order after the appends keeps the
+    last write of every keyframe, as the interleaved per-step loop would:
+    a keyframe exists before BA can touch it.
+
+    init_chain/init_obs: optional (kf_rots, kf_trans, kf_frames) and
+    (obs_kf, obs_pt, obs_px, obs_id) from a checkpoint; the steps' global
+    keyframe indices continue past the restored chain.
+    """
+    if init_chain is not None:
+        kf_rots, kf_trans, kf_frames = (list(v) for v in init_chain)
+    else:
+        kf_rots = [np.eye(3)]
+        kf_trans = [np.zeros(3)]
+        kf_frames = [0]
+    obs_kf, obs_pt, obs_px, obs_id = (list(v) for v in init_obs) if init_obs else ([], [], [], [])
+    ba_runs = 0
+    if outs is None:
+        return kf_rots, kf_trans, kf_frames, (obs_kf, obs_pt, obs_px, obs_id), 0
+
+    # Reference-style trajectory (frame numbering 1-based, keyframes only).
+    for pair_idx in np.nonzero(iskf_all)[0]:
+        frame_idx = int(pair_idx) + 1
+        trajectory.update(rot_all[pair_idx], trans_all[pair_idx], frame_idx + 1, frame_idx / config.vo.fps)
+
+    kf_steps = np.nonzero(outs.kf_idx >= 0)[0]
+    kf_rots.extend(outs.new_rot[kf_steps])
+    kf_trans.extend(outs.new_trans[kf_steps])
+    kf_frames.extend((kf_steps + 1).tolist())
+    rows, cols = np.nonzero(outs.obs_mask[kf_steps])
+    obs_kf.extend(outs.kf_idx[kf_steps][rows].tolist())
+    obs_pt.extend(outs.obs_slots[kf_steps][rows, cols].tolist())
+    obs_px.extend(outs.obs_px[kf_steps][rows, cols])
+    obs_id.extend(outs.obs_ids[kf_steps][rows, cols].tolist())
+    ba_steps = np.nonzero(outs.ba_flag)[0]
+    ba_runs += int(ba_steps.shape[0])
+    for i in ba_steps:
+        live = outs.ring_kf[i] >= 0
+        for g, r, t in zip(outs.ring_kf[i][live], outs.ring_rot[i][live], outs.ring_trans[i][live]):
+            kf_rots[g] = r
+            kf_trans[g] = t
+    return kf_rots, kf_trans, kf_frames, (obs_kf, obs_pt, obs_px, obs_id), ba_runs

@@ -1,0 +1,399 @@
+"""Whole-clip visual odometry (counterpart of slamtpu/pipeline/vo.py).
+
+One chunk of C frames is one call of `vo_frontend`:
+
+  detect_and_compute over the C frames (kernels K1 and K2)
+  Hamming matching of the C consecutive pairs (one batched matmul)
+  RANSAC 5-point pose of all C pairs as one batch
+  keyframe selection (serial over the C steps)
+  global pose composition (log-depth prefix product)
+
+Reference semantics, as in the JAX package: matching is always against the
+previous frame; the trajectory advances only on keyframes, with that
+frame's relative pose; a failed frame leaves the keyframe state and pose
+untouched; timestamps are (frame_count - 1) / fps.
+
+`run_vo` streams a clip through fixed-size chunks with the carry (last
+frame's features, keyframe state, global pose) and the same masked-seed
+schedule: step 0 pairs an empty feature carry with frame 0 and is masked,
+step j >= 1 is pair j-1. Chunked and whole-clip runs give the same result:
+RANSAC draws are seeded per global pair index, and a short last chunk
+simply has fewer steps (no padding is needed without a compiler).
+
+`run_vo_batched` runs B sequences a chunk in one pass through the same
+chunk step (`_frontend`, which `run_vo` runs with B = 1): one detector
+call and one RANSAC batch for all B*C pairs, and each sequence gets what
+`run_vo` gives it (see `detect_and_compute`'s `groups` and
+`ops/ransac.py::_gn_step` for the two ops made batch-invariant).
+With `refine_matches` each chunk also needs the frame before it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..feature.detector import OrbConfig, OrbFeatures, detect_and_compute
+from ..feature.matcher import FeatureMatcher
+from ..mapping.keyframe import KeyframeConfig, KeyframeState, keyframe_step
+from ..odometry.camera import CameraIntrinsics
+from ..odometry.pose import estimate_relative_pose
+from ..odometry.trajectory import Trajectory, compose_relative_transforms
+from ..ops.hamming import descriptor_bits
+from ..ops.lie import se3_matrix
+from ..ops.patch_refine import refine_matches
+from ..ops.ransac import PairDraws, RansacConfig, as_draws, pair_draws
+
+__all__ = ["VoConfig", "VoChunkResult", "VoRun", "seed_features", "vo_frontend", "vo_chunk", "vo_chunk_batched",
+           "run_vo", "run_vo_batched"]
+
+
+@dataclasses.dataclass(frozen=True)
+class VoConfig:
+    """The JAX package's VoConfig, same defaults: 500 features over 8
+    levels, Nistér 5-point RANSAC at 64 hypotheses with the GN polish and
+    per-octave sigma. refine_matches aligns each matched keypoint of the
+    second frame to its first-frame template by SSD (ops/patch_refine.py)
+    over a (2 refine_radius + 1)^2 template and +-refine_search px."""
+
+    orb: OrbConfig = OrbConfig()
+    ransac: RansacConfig = RansacConfig(iters=64, min_solver="5pt")
+    keyframe: KeyframeConfig = KeyframeConfig()
+    match_ratio: float = 2.0
+    min_matches: int = 8
+    fps: float = 30.0
+    refine_matches: bool = False
+    refine_radius: int = 4
+    refine_search: int = 2
+
+    @staticmethod
+    def robust() -> "VoConfig":
+        """Low-inlier preset: 256 RANSAC hypotheses instead of 64, for
+        repeated texture where genuine outliers pass the ratio filter."""
+        return VoConfig(ransac=RansacConfig(iters=256, min_solver="5pt"))
+
+
+class VoChunkResult(NamedTuple):
+    rotations: torch.Tensor  # [..., C, 3, 3] relative pose per pair
+    translations: torch.Tensor  # [..., C, 3] (unit norm where valid)
+    num_matches: torch.Tensor  # [..., C] good matches per pair
+    num_inliers: torch.Tensor  # [..., C] RANSAC inliers
+    success: torch.Tensor  # [..., C] bool — pose recovered
+    is_keyframe: torch.Tensor  # [..., C] bool
+    global_poses: torch.Tensor  # [..., C, 4, 4] pose AFTER each pair
+
+
+def seed_features(orb: OrbConfig, device=None) -> OrbFeatures:
+    """All-masked OrbFeatures: the carry seed for a run's first chunk."""
+    k = orb.max_features
+    zeros = torch.zeros((k,), dtype=torch.float32, device=device)
+    return OrbFeatures(
+        xy=torch.zeros((k, 2), dtype=torch.float32, device=device),
+        response=zeros,
+        angle=zeros.clone(),
+        octave=torch.zeros((k,), dtype=torch.int32, device=device),
+        size=zeros.clone(),
+        descriptors=torch.zeros((k, 32), dtype=torch.uint8, device=device),
+        mask=torch.zeros((k,), dtype=torch.bool, device=device),
+    )
+
+
+def _step_pairs(first_step: int, c: int):
+    """The pair each of c steps draws from: step j is pair j - 1, and the
+    masked seed step 0 reuses pair 0's draws."""
+    return [max(first_step + j - 1, 0) for j in range(c)]
+
+
+def _index_draws(draws: PairDraws, idx) -> PairDraws:
+    return PairDraws(*[None if d is None else torch.as_tensor(d[idx]) for d in draws])
+
+
+def _detect(frames, config: VoConfig) -> OrbFeatures:
+    """Features of frames [B, C, H, W] as [B, C, K, ...]: one detector call
+    over all B*C frames (one launch of each kernel), each sequence's pyramid
+    built alone."""
+    b, c = frames.shape[:2]
+    feats = detect_and_compute(frames.reshape(b * c, *frames.shape[2:]), config.orb, groups=b)
+    return OrbFeatures(*[x.reshape(b, c, *x.shape[1:]) for x in feats])
+
+
+def _pair_poses(prev_feats: OrbFeatures, feats_new: OrbFeatures, frames, intrinsics: CameraIntrinsics,
+                config: VoConfig, step_mask, draws: PairDraws, prev_frame):
+    """The pose part of the chunk step: each frame of feats_new [B, C, ...]
+    against the one before it (prev_feats [B, ...] before the first),
+    matching, sub-pixel refinement, per-octave sigma and RANSAC of all B*C
+    pairs as one batch. Returns (rotation [B, C, 3, 3], translation [B, C, 3],
+    num_good, num_inliers, success, all [B, C])."""
+    device = frames.device
+    b, c = frames.shape[:2]
+    feats_all = OrbFeatures(*[torch.cat([p[:, None], f], dim=1) for p, f in zip(prev_feats, feats_new)])
+
+    def pairs(x, first: bool):
+        """[B, C+1, ...] -> the pairs' first (or second) frames as [B*C, ...]."""
+        x = x[:, :-1] if first else x[:, 1:]
+        return x.reshape(b * c, *x.shape[2:])
+
+    # Unpack descriptor bits once per frame (each frame is in two pairs).
+    bits, pops = descriptor_bits(feats_all.descriptors)
+    matcher = FeatureMatcher()
+    good = matcher.filter_good_matches(
+        matcher.match_from_bits(pairs(bits, True), pairs(pops, True), pairs(feats_all.mask, True),
+                                pairs(bits, False), pairs(pops, False), pairs(feats_all.mask, False)),
+        config.match_ratio,
+    )
+    pts1 = pairs(feats_all.xy, True)
+    pts2 = torch.gather(pairs(feats_all.xy, False), 1, good.train_idx[..., None].expand(-1, -1, 2))
+    num_good = torch.sum(good.mask, dim=-1, dtype=torch.int32)
+    enough = num_good >= config.min_matches
+
+    if config.refine_matches and prev_frame is not None:
+        imgs = torch.cat([torch.as_tensor(prev_frame, device=device)[:, None], frames], dim=1)
+        pts2 = refine_matches(pairs(imgs, True), pairs(imgs, False), pts1, pts2, good.mask,
+                              radius=config.refine_radius, search=config.refine_search)
+
+    if config.ransac.octave_sigma:
+        oct1 = pairs(feats_all.octave, True)
+        oct2 = torch.gather(pairs(feats_all.octave, False), 1, good.train_idx)
+        base = torch.tensor(config.orb.scale_factor, dtype=pts1.dtype, device=device)
+        sigma = torch.pow(base, torch.maximum(oct1, oct2).to(pts1.dtype))
+    else:
+        sigma = torch.ones_like(pts1[..., 0])
+
+    flat_draws = PairDraws(*[None if d is None else d.reshape(b * c, *d.shape[2:]) for d in draws])
+    poses = estimate_relative_pose(intrinsics, pts1, pts2, mask=good.mask, config=config.ransac,
+                                   sigma=sigma, uniforms=flat_draws)
+    success = (poses.valid & enough).reshape(b, c)
+    if step_mask is not None:
+        success = success & torch.as_tensor(step_mask, dtype=torch.bool, device=device)
+    return (poses.rotation.reshape(b, c, 3, 3), poses.translation.reshape(b, c, 3), num_good.reshape(b, c),
+            poses.num_inliers.reshape(b, c), success)
+
+
+def _keyframe_scan(config: KeyframeConfig, kf_state: KeyframeState, rotation, translation, num_good, success):
+    """Keyframe selection, serial over the C steps of [B, C] inputs, all
+    sequences at once; failed frames leave their state untouched. Returns
+    (state after the last step, is_keyframe [B, C])."""
+    state = kf_state
+    is_kf = []
+    for i in range(success.shape[1]):
+        stepped, kf = keyframe_step(config, state, rotation[:, i], translation[:, i], num_good[:, i])
+        ok = success[:, i]
+        state = KeyframeState(*[torch.where(ok, a, s) for a, s in zip(stepped, state)])
+        is_kf.append(kf & ok)
+    return state, torch.stack(is_kf, dim=1)
+
+
+def _keyframe_transforms(rotation, translation, is_kf, dtype):
+    """The relative 4x4 transforms [..., 4, 4] in `dtype`, identity where a
+    step is no keyframe (the trajectory advances on keyframes only)."""
+    rel = se3_matrix(rotation, translation).to(dtype)
+    eye = torch.eye(4, dtype=rel.dtype, device=rel.device)
+    return torch.where(is_kf[..., None, None], rel, eye)
+
+
+def _frontend(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, frames, intrinsics: CameraIntrinsics,
+              config: VoConfig, step_mask, draws: PairDraws, prev_frame):
+    """The chunk step over B sequences at once: frames [B, C, H, W], carry
+    fields with a leading [B], draws [B, C, ...]. The detector sees all B*C
+    frames in one call (one launch of each kernel), matching and RANSAC all
+    B*C pairs as one batch; the keyframe scan steps the B states together."""
+    feats_new = _detect(frames, config)
+    rotation, translation, num_good, num_inliers, success = _pair_poses(
+        prev_feats, feats_new, frames, intrinsics, config, step_mask, draws, prev_frame)
+    state, is_kf = _keyframe_scan(config.keyframe, kf_state, rotation, translation, num_good, success)
+
+    # Trajectory: one prefix product per sequence from the carried pose.
+    rel = _keyframe_transforms(rotation, translation, is_kf, global_pose.dtype)
+    globals_ = compose_relative_transforms(torch.cat([global_pose[:, None], rel], dim=1))[:, 1:]
+
+    new_prev = OrbFeatures(*[x[:, -1] for x in feats_new])
+    result = VoChunkResult(rotation, translation, num_good, num_inliers, success, is_kf, globals_)
+    return (new_prev, state, globals_[:, -1]), result, feats_new
+
+
+def vo_frontend(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, frames,
+                intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(), step_mask=None,
+                uniforms=None, seed: int = 0, first_step: int = 0, prev_frame=None):
+    """vo_chunk plus the per-frame features.
+
+    frames [C, H, W] (uint8 or float) on the carry's device. step_mask:
+    optional [C] bool, False marks steps treated as failed frames (the
+    masked seed step). uniforms: optional RANSAC draws for the C steps,
+    the essential stream [C, iters, K] or a `PairDraws`; a stream the
+    config reads and `uniforms` lacks comes from the generator of pair
+    max(first_step + j - 1, 0) under `seed` (step j of the chunk).
+    prev_frame: [H, W] pixels of the frame before frames[0], which
+    refine_matches needs (without it no match is refined).
+
+    Returns ((new_prev_feats, new_kf_state, new_global_pose),
+    VoChunkResult, feats_new [C]).
+    """
+    device = global_pose.device
+    frames = torch.as_tensor(frames, device=device)
+    c, k = frames.shape[0], config.orb.max_features
+    draws = pair_draws(seed, _step_pairs(first_step, c), config.ransac, k, device, given=as_draws(uniforms))
+    carry, result, feats_new = _frontend(
+        OrbFeatures(*[x[None] for x in prev_feats]), KeyframeState(*[x[None] for x in kf_state]), global_pose[None],
+        frames[None], intrinsics, config, step_mask, PairDraws(*[None if d is None else d[None] for d in draws]),
+        None if prev_frame is None else torch.as_tensor(prev_frame, device=device)[None])
+    unbatch = lambda tree: type(tree)(*[x[0] for x in tree])  # noqa: E731
+    new_prev, state, pose = carry
+    return (unbatch(new_prev), unbatch(state), pose[0]), unbatch(result), unbatch(feats_new)
+
+
+def vo_chunk(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, frames,
+             intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(), step_mask=None,
+             uniforms=None, seed: int = 0, first_step: int = 0, prev_frame=None):
+    """Process C new frames against the carried previous frame.
+    Returns ((new_prev_feats, new_kf_state, new_global_pose), VoChunkResult)."""
+    carry, result, _ = vo_frontend(prev_feats, kf_state, global_pose, frames, intrinsics, config,
+                                   step_mask, uniforms, seed, first_step, prev_frame)
+    return carry, result
+
+
+def vo_chunk_batched(prev_feats: OrbFeatures, kf_states: KeyframeState, global_poses, frames,
+                     intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(), step_mask=None,
+                     uniforms=None, seeds=None, first_step: int = 0, prev_frames=None):
+    """vo_chunk over B independent sequences in one pass: frames
+    [B, C, H, W], carries with a leading [B], step_mask [C] shared by all.
+    The detector runs once over all B*C frames (one launch of each
+    kernel) and RANSAC over all B*C pairs. uniforms: optional [B, C, ...]
+    draws (a tensor for the essential stream or a `PairDraws`); missing
+    streams of sequence b come from seeds[b] (default b).
+    Returns ((new_prev_feats, new_kf_states, new_global_poses),
+    VoChunkResult with a leading [B])."""
+    device = global_poses.device
+    frames = torch.as_tensor(frames, device=device)
+    b, c = frames.shape[:2]
+    seeds = list(range(b)) if seeds is None else list(seeds)
+    given = as_draws(uniforms)
+    per_seq = [pair_draws(seeds[i], _step_pairs(first_step, c), config.ransac, config.orb.max_features, device,
+                          given=_index_draws(given, i)) for i in range(b)]
+    draws = PairDraws(*[None if parts[0] is None else torch.stack(parts) for parts in zip(*per_seq)])
+    carry, result, _ = _frontend(prev_feats, kf_states, global_poses, frames, intrinsics, config, step_mask, draws,
+                                 None if prev_frames is None else torch.as_tensor(prev_frames, device=device))
+    return carry, result
+
+
+@dataclasses.dataclass
+class VoRun:
+    """Host-side results of a full run: the summary counts plus the raw
+    per-pair arrays."""
+
+    trajectory: Trajectory
+    total_frames: int
+    successful_frames: int
+    failed_frames: int
+    keyframe_count: int
+    num_matches: np.ndarray  # [T-1]
+    num_inliers: np.ndarray  # [T-1]
+    success: np.ndarray  # [T-1]
+    is_keyframe: np.ndarray  # [T-1]
+    rotations: np.ndarray  # [T-1, 3, 3] per-pair relative rotations
+    translations: np.ndarray  # [T-1, 3] per-pair unit translations
+
+    @property
+    def keyframe_ratio(self) -> float:
+        return self.keyframe_count / max(self.total_frames, 1)
+
+
+def _vo_run(merged: VoChunkResult, t_total: int, fps: float) -> VoRun:
+    """The host-side VoRun of one sequence's per-pair numpy arrays."""
+    trajectory = Trajectory()
+    for idx in np.nonzero(merged.is_keyframe)[0]:
+        frame_count = idx + 2  # pair idx connects frame idx -> idx+1 (1-based count)
+        trajectory.update(merged.rotations[idx], merged.translations[idx], frame_count, (frame_count - 1) / fps)
+    success = merged.success
+    return VoRun(
+        trajectory=trajectory,
+        total_frames=t_total,
+        successful_frames=int(success.sum()),
+        failed_frames=int((~success).sum()),
+        keyframe_count=int(merged.is_keyframe.sum()),
+        num_matches=merged.num_matches,
+        num_inliers=merged.num_inliers,
+        success=success,
+        is_keyframe=merged.is_keyframe,
+        rotations=merged.rotations,
+        translations=merged.translations,
+    )
+
+
+def _empty_run(t_total: int) -> VoRun:
+    return VoRun(Trajectory(), t_total, 0, 0, 0, *(np.zeros((0,)),) * 4, np.zeros((0, 3, 3)), np.zeros((0, 3)))
+
+
+def run_vo(frames, intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(),
+           chunk_size: int | None = None, seed: int = 0, device=None, uniforms=None,
+           pose_dtype: torch.dtype = torch.float32) -> VoRun:
+    """Run the VO pipeline over a clip [T, H, W] (uint8/float, numpy or
+    tensor) on `device` ("cuda" when None; raises without one).
+
+    chunk_size None = the whole clip in one chunk; otherwise frames stream
+    through chunks of that many steps. Identical results either way.
+    RANSAC draws come from `seed`, one generator per global pair index and
+    stream (ops/ransac.py::pair_draws, the same numbers on every device),
+    or from `uniforms` [T-1, ...]: the essential stream [T-1, iters, K] or
+    a `PairDraws` (streams it lacks come from `seed`). pose_dtype: the
+    dtype of the device pose chain (`VoChunkResult.global_poses`), f32 as
+    in the JAX package without x64; the trajectory is composed on the host
+    in f64 either way.
+    """
+    dev = resolve_device(device)
+    t_total = frames.shape[0]
+    if t_total < 2:
+        return _empty_run(t_total)
+    chunk = chunk_size or t_total
+    carry = (seed_features(config.orb, dev), KeyframeState.initial(dev),
+             torch.eye(4, dtype=pose_dtype, device=dev))
+    given = as_draws(uniforms)
+    results = []
+    for start in range(0, t_total, chunk):
+        stop = min(start + chunk, t_total)
+        block = torch.as_tensor(frames[start:stop]).to(dev)  # uint8 crosses the bus
+        step_mask = torch.arange(start, stop, device=dev) >= 1
+        prev_frame = torch.as_tensor(frames[max(start - 1, 0)]).to(dev) if config.refine_matches else None
+        carry, res = vo_chunk(*carry, block, intrinsics, config, step_mask,
+                              uniforms=_index_draws(given, _step_pairs(start, stop - start)), seed=seed,
+                              first_step=start, prev_frame=prev_frame)
+        results.append(res)
+    # One device->host copy per field; drop the masked seed step so row i
+    # is pair i.
+    merged = VoChunkResult(*[torch.cat(parts, dim=0)[1:].cpu().numpy() for parts in zip(*results)])
+    return _vo_run(merged, t_total, config.fps)
+
+
+def run_vo_batched(frames, intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(),
+                   chunk_size: int | None = None, seed: int = 0, device=None, uniforms=None,
+                   pose_dtype: torch.dtype = torch.float32) -> list:
+    """run_vo over B sequences [B, T, H, W] in one pass per chunk: a list of
+    B VoRuns, sequence b drawing from `seed + b` (so each equals run_vo of
+    that sequence at seed + b) or from `uniforms` [B, T-1, ...]. Each
+    chunk runs the detector once over all B sequences' frames."""
+    dev = resolve_device(device)
+    b, t_total = frames.shape[:2]
+    if t_total < 2:
+        return [_empty_run(t_total) for _ in range(b)]
+    chunk = chunk_size or t_total
+    carry = (OrbFeatures(*[x.expand(b, *x.shape).clone() for x in seed_features(config.orb, dev)]),
+             KeyframeState(*[x.expand(b).clone() for x in KeyframeState.initial(dev)]),
+             torch.eye(4, dtype=pose_dtype, device=dev).expand(b, 4, 4).clone())
+    given = as_draws(uniforms)
+    seeds = [seed + i for i in range(b)]
+    results = []
+    for start in range(0, t_total, chunk):
+        stop = min(start + chunk, t_total)
+        block = torch.as_tensor(frames[:, start:stop]).to(dev)
+        step_mask = torch.arange(start, stop, device=dev) >= 1
+        prev_frames = torch.as_tensor(frames[:, max(start - 1, 0)]).to(dev) if config.refine_matches else None
+        steps = _step_pairs(start, stop - start)
+        draws = PairDraws(*[None if d is None else torch.as_tensor(d)[:, steps] for d in given])
+        carry, res = vo_chunk_batched(*carry, block, intrinsics, config, step_mask, uniforms=draws, seeds=seeds,
+                                      first_step=start, prev_frames=prev_frames)
+        results.append(res)
+    merged = VoChunkResult(*[torch.cat(parts, dim=1)[:, 1:].cpu().numpy() for parts in zip(*results)])
+    return [_vo_run(VoChunkResult(*[x[i] for x in merged]), t_total, config.fps) for i in range(b)]
