@@ -38,6 +38,7 @@ from .. import resolve_device
 from ..odometry.camera import CameraIntrinsics
 from ..ops.five_point import _solve_pivoted
 from ..ops.lie import hat, so3_exp
+from ..utils.metrics import count, span
 
 __all__ = ["Observation", "ObservationBatch", "BaConfig", "BundleAdjuster", "ba_solve", "compute_total_error",
            "pose_point_jacobians"]
@@ -440,19 +441,24 @@ def ba_solve(intrinsics: CameraIntrinsics, rotations, translations, points, obs:
     err = error_of(rot, trans, pts)
     iters = 0
     while iters < config.max_iterations:
-        new_rot, new_trans, new_pts = one_iteration(rot, trans, pts)
-        new_err = error_of(new_rot, new_trans, new_pts)
-        # NaN-safe: a non-finite error counts as divergence and is rolled back.
-        diverged = ~(new_err <= err * 1.5)
-        converged = torch.abs(err - new_err) < config.min_error_change
-        keep = ~diverged
-        rot = torch.where(keep, new_rot, rot)
-        trans = torch.where(keep, new_trans, trans)
-        pts = torch.where(keep, new_pts, pts)
-        err = torch.where(keep, new_err, err)
-        iters += 1
-        if bool(diverged | converged):
+        with span("ba.iteration"):
+            new_rot, new_trans, new_pts = one_iteration(rot, trans, pts)
+            new_err = error_of(new_rot, new_trans, new_pts)
+            # NaN-safe: a non-finite error counts as divergence and is rolled back.
+            diverged = ~(new_err <= err * 1.5)
+            converged = torch.abs(err - new_err) < config.min_error_change
+            keep = ~diverged
+            rot = torch.where(keep, new_rot, rot)
+            trans = torch.where(keep, new_trans, trans)
+            pts = torch.where(keep, new_pts, pts)
+            err = torch.where(keep, new_err, err)
+            iters += 1
+            with span("ba.stop.read"):
+                stop = bool(diverged | converged)
+        if stop:
             break
+    count("ba.solves")
+    count("ba.lm_iterations", iters)
     return rot, trans, pts, err, iters
 
 

@@ -15,6 +15,7 @@ from .. import resolve_device
 from ..ops.epipolar import recover_pose_from_essential, sampson_error
 from ..ops.homography import ransac_homography, recover_pose_from_homography
 from ..ops.ransac import PairDraws, RansacConfig, RansacResult, as_draws, ransac_essential
+from ..utils.metrics import span
 from .camera import CameraIntrinsics
 
 __all__ = ["MIN_MATCHES", "PoseEstimator", "RelativePose", "estimate_relative_pose", "extract_matched_points"]
@@ -65,33 +66,34 @@ def estimate_relative_pose(intrinsics: CameraIntrinsics, points1, points2, mask=
         norm1, norm2, mask=mask, threshold_norm=threshold_norm, config=config, sigma=sigma,
         uniforms=draws, generator=generator,
     )
-    rotation, translation, votes = recover_pose_from_essential(
-        result.essential, norm1, norm2, mask=result.inliers
-    )
-    # recoverPose's count: RANSAC inliers passing the winning candidate's
-    # cheirality test; the reference requires >= 8 of THOSE.
-    cheirality_inliers = torch.amax(votes, dim=-1)
-    num_inliers = result.num_inliers
-
-    if config.homography_fallback:
-        h, h_inliers, h_count = ransac_homography(
-            norm1, norm2, mask=mask, threshold_norm=threshold_norm, iters=config.homography_iters,
-            sigma=sigma, uniforms=draws.homography, generator=generator,
+    with span("pose.recover"):
+        rotation, translation, votes = recover_pose_from_essential(
+            result.essential, norm1, norm2, mask=result.inliers
         )
-        r_h, t_h, _ = recover_pose_from_homography(h, norm1, norm2, mask=h_inliers)
-        ratio = h_count.to(norm1.dtype) / torch.clamp((h_count + result.num_inliers).to(norm1.dtype), min=1.0)
-        use_h = ratio > config.homography_ratio
-        rotation = torch.where(use_h[..., None, None], r_h, rotation)
-        translation = torch.where(use_h[..., None], t_h, translation)
-        num_inliers = torch.where(use_h, h_count, num_inliers)
-        cheirality_inliers = torch.where(use_h, h_count, cheirality_inliers)
+        # recoverPose's count: RANSAC inliers passing the winning candidate's
+        # cheirality test; the reference requires >= 8 of THOSE.
+        cheirality_inliers = torch.amax(votes, dim=-1)
+        num_inliers = result.num_inliers
 
-    enough_input = torch.sum(mask, dim=-1) >= MIN_MATCHES
-    valid = enough_input & (cheirality_inliers >= MIN_MATCHES)
-    eye = torch.eye(3, dtype=rotation.dtype, device=rotation.device)
-    rotation = torch.where(valid[..., None, None], rotation, eye)
-    translation = torch.where(valid[..., None], translation, torch.zeros_like(translation))
-    return RelativePose(rotation, translation, num_inliers, valid, result.inliers)
+        if config.homography_fallback:
+            h, h_inliers, h_count = ransac_homography(
+                norm1, norm2, mask=mask, threshold_norm=threshold_norm, iters=config.homography_iters,
+                sigma=sigma, uniforms=draws.homography, generator=generator,
+            )
+            r_h, t_h, _ = recover_pose_from_homography(h, norm1, norm2, mask=h_inliers)
+            ratio = h_count.to(norm1.dtype) / torch.clamp((h_count + result.num_inliers).to(norm1.dtype), min=1.0)
+            use_h = ratio > config.homography_ratio
+            rotation = torch.where(use_h[..., None, None], r_h, rotation)
+            translation = torch.where(use_h[..., None], t_h, translation)
+            num_inliers = torch.where(use_h, h_count, num_inliers)
+            cheirality_inliers = torch.where(use_h, h_count, cheirality_inliers)
+
+        enough_input = torch.sum(mask, dim=-1) >= MIN_MATCHES
+        valid = enough_input & (cheirality_inliers >= MIN_MATCHES)
+        eye = torch.eye(3, dtype=rotation.dtype, device=rotation.device)
+        rotation = torch.where(valid[..., None, None], rotation, eye)
+        translation = torch.where(valid[..., None], translation, torch.zeros_like(translation))
+        return RelativePose(rotation, translation, num_inliers, valid, result.inliers)
 
 
 class PoseEstimator:

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ..utils.metrics import span
 from .epipolar import _homogeneous
 
 __all__ = ["N_ROOT_SLOTS", "five_point_candidates"]
@@ -260,12 +261,13 @@ def _nullspace4(pts1, pts2):
     """[..., 5, 2] normalized pairs -> [..., 4, 3, 3] orthonormal basis of
     the design matrix's null space: the last 4 columns of the complete QR
     factor of A^T (any orthonormal kernel basis serves the Nistér form)."""
-    x1 = _homogeneous(pts1)
-    x2 = _homogeneous(pts2)
-    a = (x2[..., :, :, None] * x1[..., :, None, :]).reshape(*x1.shape[:-1], 9)
-    q = torch.linalg.qr(a.transpose(-1, -2), mode="complete")[0]
-    basis = q[..., :, 5:].transpose(-1, -2)
-    return basis.reshape(*basis.shape[:-1], 3, 3)
+    with span("pose.nullspace"):
+        x1 = _homogeneous(pts1)
+        x2 = _homogeneous(pts2)
+        a = (x2[..., :, :, None] * x1[..., :, None, :]).reshape(*x1.shape[:-1], 9)
+        q = torch.linalg.qr(a.transpose(-1, -2), mode="complete")[0]
+        basis = q[..., :, 5:].transpose(-1, -2)
+        return basis.reshape(*basis.shape[:-1], 3, 3)
 
 
 def _solve_pivoted(a, b):

@@ -52,6 +52,7 @@ from ..mapping.triangulation import MapPoint, triangulate_points
 from ..odometry.camera import CameraIntrinsics
 from ..odometry.trajectory import Trajectory
 from ..ops.hamming import descriptor_bits
+from ..utils.metrics import span
 from .vo import VoConfig, vo_frontend
 
 __all__ = ["PointCloudConfig", "PointCloudResult", "run_point_cloud", "run_point_cloud_fused", "run_global_ba"]
@@ -290,7 +291,9 @@ def _f32(x, dev) -> torch.Tensor:
 
 def _first_features(frames, config: PointCloudConfig, dev) -> OrbFeatures:
     """Frame 0's features (one launch of each kernel)."""
-    feats0 = detect_and_compute(torch.as_tensor(frames[:1]).to(dev), config.vo.orb)
+    with span("vo.upload"):
+        frame0 = torch.as_tensor(frames[:1]).to(dev)
+    feats0 = detect_and_compute(frame0, config.vo.orb)
     return OrbFeatures(*[x[0] for x in feats0])
 
 
@@ -635,106 +638,116 @@ def _fused_window_ba(state: MapState, ring_rot, ring_trans, ring_kf, ring_slots,
     keyframe; the host loop's check of that is dropped here, as it would
     read the device.
     """
-    w, o_cap = config.ba_window, config.max_obs_per_kf
-    live = ring_kf >= 0
-    # Drop observations whose slot was pruned or recycled since recording.
-    obs_ok = ring_mask & live[:, None] & state.valid[ring_slots] & (state.ids[ring_slots] == ring_ids)
-    l_max = min(config.max_ba_landmarks, w * o_cap)
-    big = state.capacity
-    flat_slots = ring_slots.reshape(-1)
-    flat_ok = obs_ok.reshape(-1)
-    skeys = torch.sort(torch.where(flat_ok, flat_slots, big)).values
-    firsts = torch.cat([torch.ones((1,), dtype=torch.bool, device=skeys.device), skeys[1:] != skeys[:-1]])
-    uniq = torch.sort(torch.where(firsts, skeys, big)).values[:l_max]
-    l_mask = uniq < big
-    pt_c = torch.clamp(torch.searchsorted(uniq, flat_slots), 0, l_max - 1)
-    ok_c = flat_ok & (uniq[pt_c] == flat_slots)
-    # Gauge and scale anchor: the window's two oldest live poses are frozen.
-    live_rank = torch.cumsum(live, dim=0, dtype=torch.int32) - 1
-    pose_free = live & (live_rank >= 2)
-    kf_of_obs = torch.arange(w, device=ring_kf.device)[:, None].expand(w, o_cap).reshape(-1)
-    new_rot, new_trans, positions = _ba_window_solve(
-        state.positions, ring_rot, ring_trans, pose_free, torch.where(l_mask, uniq, 0), l_mask, kf_of_obs, pt_c,
-        ring_px.reshape(-1, 2).to(ring_rot.dtype), ok_c, intrinsics, config.ba, False)
-    return new_rot, new_trans, positions
+    with span("map.window_ba"):
+        w, o_cap = config.ba_window, config.max_obs_per_kf
+        live = ring_kf >= 0
+        # Drop observations whose slot was pruned or recycled since recording.
+        obs_ok = ring_mask & live[:, None] & state.valid[ring_slots] & (state.ids[ring_slots] == ring_ids)
+        l_max = min(config.max_ba_landmarks, w * o_cap)
+        big = state.capacity
+        flat_slots = ring_slots.reshape(-1)
+        flat_ok = obs_ok.reshape(-1)
+        skeys = torch.sort(torch.where(flat_ok, flat_slots, big)).values
+        firsts = torch.cat([torch.ones((1,), dtype=torch.bool, device=skeys.device), skeys[1:] != skeys[:-1]])
+        uniq = torch.sort(torch.where(firsts, skeys, big)).values[:l_max]
+        l_mask = uniq < big
+        pt_c = torch.clamp(torch.searchsorted(uniq, flat_slots), 0, l_max - 1)
+        ok_c = flat_ok & (uniq[pt_c] == flat_slots)
+        # Gauge and scale anchor: the window's two oldest live poses are frozen.
+        live_rank = torch.cumsum(live, dim=0, dtype=torch.int32) - 1
+        pose_free = live & (live_rank >= 2)
+        kf_of_obs = torch.arange(w, device=ring_kf.device)[:, None].expand(w, o_cap).reshape(-1)
+        new_rot, new_trans, positions = _ba_window_solve(
+            state.positions, ring_rot, ring_trans, pose_free, torch.where(l_mask, uniq, 0), l_mask, kf_of_obs, pt_c,
+            ring_px.reshape(-1, 2).to(ring_rot.dtype), ok_c, intrinsics, config.ba, False)
+        return new_rot, new_trans, positions
 
 
 def _kf_step(carry: _FusedCarry, xy, desc, mask, rel_r, rel_t, intrinsics, config: PointCloudConfig):
     """One keyframe: re-match against the previous keyframe, triangulate and
     insert, re-associate and log observations into the ring, then BA and
     prune when due. Returns (new carry, step outputs)."""
-    state = carry.map_state
-    dev = xy.device
-    o_cap = config.max_obs_per_kf
-    good = _match_keyframes(carry.prev_desc, carry.prev_mask, desc, mask)
-    xy2 = xy[good.train_idx]
-    desc2 = desc[good.train_idx]
+    with span("map.kf_step"):
+        state = carry.map_state
+        dev = xy.device
+        o_cap = config.max_obs_per_kf
+        with span("map.match"):
+            good = _match_keyframes(carry.prev_desc, carry.prev_mask, desc, mask)
+            xy2 = xy[good.train_idx]
+            desc2 = desc[good.train_idx]
 
-    # Correct world-to-camera chain in the pose dtype (the frontend's f32
-    # relative pose is promoted exactly); triangulation stays f32.
-    rel_r = rel_r.to(carry.prev_rot.dtype)
-    new_r = rel_r @ carry.prev_rot
-    new_t = rel_r @ carry.prev_trans + rel_t.to(carry.prev_rot.dtype)
-    r32, t32 = new_r.float(), new_t.float()
-    xyz, tri_valid = triangulate_points(intrinsics, (carry.prev_rot.float(), carry.prev_trans.float()), (r32, t32),
-                                        carry.prev_xy, xy2)
-    state, free_head, slot_i = _map_insert_at(state, carry.free_slots, carry.free_head, xyz, desc2,
-                                              tri_valid & good.mask)
-    ins_bits, ins_pops = descriptor_bits(desc2)
-    map_bits = _set_rows(carry.map_bits, slot_i, ins_bits)
-    map_pops = _set_rows(carry.map_pops, slot_i, ins_pops)
+        with span("map.triangulate"):
+            # Correct world-to-camera chain in the pose dtype (the frontend's
+            # f32 relative pose is promoted exactly); triangulation stays f32.
+            rel_r = rel_r.to(carry.prev_rot.dtype)
+            new_r = rel_r @ carry.prev_rot
+            new_t = rel_r @ carry.prev_trans + rel_t.to(carry.prev_rot.dtype)
+            r32, t32 = new_r.float(), new_t.float()
+            xyz, tri_valid = triangulate_points(intrinsics, (carry.prev_rot.float(), carry.prev_trans.float()),
+                                                (r32, t32), carry.prev_xy, xy2)
+            state, free_head, slot_i = _map_insert_at(state, carry.free_slots, carry.free_head, xyz, desc2,
+                                                      tri_valid & good.mask)
+            ins_bits, ins_pops = descriptor_bits(desc2)
+            map_bits = _set_rows(carry.map_bits, slot_i, ins_bits)
+            map_pops = _set_rows(carry.map_pops, slot_i, ins_pops)
 
-    # Re-associate the map with this keyframe: the observation count rises
-    # for every match, the ring logs those within the reprojection gate.
-    state, midx, mgood = _reassociate(state, intrinsics, desc, mask, xy, (r32, t32), config.obs_max_reproj_px,
-                                      map_bits, map_pops)
+        # Re-associate the map with this keyframe: the observation count rises
+        # for every match, the ring logs those within the reprojection gate.
+        with span("map.reassociate"):
+            state, midx, mgood = _reassociate(state, intrinsics, desc, mask, xy, (r32, t32),
+                                              config.obs_max_reproj_px, map_bits, map_pops)
 
-    # The first o_cap matched slots in index order as observation rows
-    # (padding rows point at slot 0, unmasked).
-    obs_rank = torch.cumsum(mgood, dim=0, dtype=torch.int32) - 1
-    slots = _set_rows(torch.zeros((o_cap,), dtype=torch.int32, device=dev),
-                      torch.where(mgood & (obs_rank < o_cap), obs_rank, o_cap),
-                      torch.arange(state.capacity, dtype=torch.int32, device=dev))
-    omask = mgood[slots] & (torch.arange(o_cap, device=dev) <= obs_rank[-1])
-    opx = xy[midx[slots]]
-    oids = state.ids[slots]
+        with span("map.ring"):
+            # The first o_cap matched slots in index order as observation rows
+            # (padding rows point at slot 0, unmasked).
+            obs_rank = torch.cumsum(mgood, dim=0, dtype=torch.int32) - 1
+            slots = _set_rows(torch.zeros((o_cap,), dtype=torch.int32, device=dev),
+                              torch.where(mgood & (obs_rank < o_cap), obs_rank, o_cap),
+                              torch.arange(state.capacity, dtype=torch.int32, device=dev))
+            omask = mgood[slots] & (torch.arange(o_cap, device=dev) <= obs_rank[-1])
+            opx = xy[midx[slots]]
+            oids = state.ids[slots]
 
-    kf_idx = carry.kf_count
-    new_count = kf_idx + 1
-    ring_rot = torch.cat([carry.ring_rot[1:], new_r[None]])
-    ring_trans = torch.cat([carry.ring_trans[1:], new_t[None]])
-    ring_kf = torch.cat([carry.ring_kf[1:], torch.full((1,), kf_idx, dtype=torch.int32, device=dev)])
-    ring_slots = torch.cat([carry.ring_slots[1:], slots[None]])
-    ring_ids = torch.cat([carry.ring_ids[1:], oids[None]])
-    ring_px = torch.cat([carry.ring_px[1:], opx[None]])
-    ring_mask = torch.cat([carry.ring_mask[1:], omask[None]])
+            kf_idx = carry.kf_count
+            new_count = kf_idx + 1
+            ring_rot = torch.cat([carry.ring_rot[1:], new_r[None]])
+            ring_trans = torch.cat([carry.ring_trans[1:], new_t[None]])
+            ring_kf = torch.cat([carry.ring_kf[1:], torch.full((1,), kf_idx, dtype=torch.int32, device=dev)])
+            ring_slots = torch.cat([carry.ring_slots[1:], slots[None]])
+            ring_ids = torch.cat([carry.ring_ids[1:], oids[None]])
+            ring_px = torch.cat([carry.ring_px[1:], opx[None]])
+            ring_mask = torch.cat([carry.ring_mask[1:], omask[None]])
 
-    # Windowed BA every ba_interval keyframes, when the window logged an
-    # observation: the step's one host read.
-    ba_flag = bool(config.ba_interval and new_count % config.ba_interval == 0 and ring_mask.any())
-    if ba_flag:
-        ring_rot, ring_trans, positions = _fused_window_ba(state, ring_rot, ring_trans, ring_kf, ring_slots,
-                                                           ring_ids, ring_px, ring_mask, intrinsics, config)
-        state = state._replace(positions=positions)
+        # Windowed BA every ba_interval keyframes, when the window logged an
+        # observation: the step's one host read.
+        ba_flag = False
+        if config.ba_interval and new_count % config.ba_interval == 0:
+            with span("map.ba_due.read"):
+                ba_flag = bool(ring_mask.any())
+        if ba_flag:
+            ring_rot, ring_trans, positions = _fused_window_ba(state, ring_rot, ring_trans, ring_kf, ring_slots,
+                                                               ring_ids, ring_px, ring_mask, intrinsics, config)
+            state = state._replace(positions=positions)
 
-    # Prune every prune_interval keyframes; pruning frees slots, so the free
-    # table is rebuilt on the same steps only.
-    free_slots = carry.free_slots
-    if config.prune_interval and new_count % config.prune_interval == 0:
-        state = map_prune(state, config.min_observations)
-        free_slots, free_head = _free_table(state)
+        # Prune every prune_interval keyframes; pruning frees slots, so the
+        # free table is rebuilt on the same steps only.
+        free_slots = carry.free_slots
+        if config.prune_interval and new_count % config.prune_interval == 0:
+            with span("map.prune"):
+                state = map_prune(state, config.min_observations)
+                free_slots, free_head = _free_table(state)
 
-    new_carry = _FusedCarry(
-        map_state=state, free_slots=free_slots, free_head=free_head, map_bits=map_bits, map_pops=map_pops,
-        prev_xy=xy, prev_desc=desc, prev_mask=mask,
-        # The next keyframe chains off the ring's newest pose: BA may have
-        # just moved it (the host loop chains off its BA-updated chain too).
-        prev_rot=ring_rot[-1], prev_trans=ring_trans[-1], kf_count=new_count,
-        ring_rot=ring_rot, ring_trans=ring_trans, ring_kf=ring_kf, ring_slots=ring_slots, ring_ids=ring_ids,
-        ring_px=ring_px, ring_mask=ring_mask,
-    )
-    out = _FusedStepOut(kf_idx, new_r, new_t, ba_flag, ring_rot, ring_trans, ring_kf, slots, oids, opx, omask)
-    return new_carry, out
+        new_carry = _FusedCarry(
+            map_state=state, free_slots=free_slots, free_head=free_head, map_bits=map_bits, map_pops=map_pops,
+            prev_xy=xy, prev_desc=desc, prev_mask=mask,
+            # The next keyframe chains off the ring's newest pose: BA may have
+            # just moved it (the host loop chains off its BA-updated chain too).
+            prev_rot=ring_rot[-1], prev_trans=ring_trans[-1], kf_count=new_count,
+            ring_rot=ring_rot, ring_trans=ring_trans, ring_kf=ring_kf, ring_slots=ring_slots, ring_ids=ring_ids,
+            ring_px=ring_px, ring_mask=ring_mask,
+        )
+        out = _FusedStepOut(kf_idx, new_r, new_t, ba_flag, ring_rot, ring_trans, ring_kf, slots, oids, opx, omask)
+        return new_carry, out
 
 
 def _fused_phase2_chunk(carry: _FusedCarry, feats: OrbFeatures, rel_rot, rel_trans, is_kf, intrinsics,
@@ -745,26 +758,27 @@ def _fused_phase2_chunk(carry: _FusedCarry, feats: OrbFeatures, rel_rot, rel_tra
     ba_flag as CPU tensors, the rest on the device). A step without a
     keyframe leaves the carry as it is and yields the carry's poses and
     ring with kf_idx -1 and no observation."""
-    skipped_obs = None
-    outs = []
-    for i, kf in enumerate(np.asarray(is_kf, dtype=bool)):
-        if kf:
-            carry, out = _kf_step(carry, feats.xy[i], feats.descriptors[i], feats.mask[i], rel_rot[i], rel_trans[i],
-                                  intrinsics, config)
-        else:
-            if skipped_obs is None:
-                o_cap, dev = config.max_obs_per_kf, carry.ring_kf.device
-                skipped_obs = (torch.zeros((o_cap,), dtype=torch.int32, device=dev),
-                               torch.full((o_cap,), -1, dtype=torch.int32, device=dev),
-                               torch.zeros((o_cap, 2), dtype=torch.float32, device=dev),
-                               torch.zeros((o_cap,), dtype=torch.bool, device=dev))
-            out = _FusedStepOut(-1, carry.prev_rot, carry.prev_trans, False, carry.ring_rot, carry.ring_trans,
-                                carry.ring_kf, *skipped_obs)
-        outs.append(out)
-    stacked = {name: torch.stack(f) for name, f in zip(_FusedStepOut._fields, zip(*outs))
-               if name not in ("kf_idx", "ba_flag")}
-    return carry, _FusedStepOut(kf_idx=torch.tensor([o.kf_idx for o in outs], dtype=torch.int32),
-                                ba_flag=torch.tensor([o.ba_flag for o in outs]), **stacked)
+    with span("map.phase2"):
+        skipped_obs = None
+        outs = []
+        for i, kf in enumerate(np.asarray(is_kf, dtype=bool)):
+            if kf:
+                carry, out = _kf_step(carry, feats.xy[i], feats.descriptors[i], feats.mask[i], rel_rot[i],
+                                      rel_trans[i], intrinsics, config)
+            else:
+                if skipped_obs is None:
+                    o_cap, dev = config.max_obs_per_kf, carry.ring_kf.device
+                    skipped_obs = (torch.zeros((o_cap,), dtype=torch.int32, device=dev),
+                                   torch.full((o_cap,), -1, dtype=torch.int32, device=dev),
+                                   torch.zeros((o_cap, 2), dtype=torch.float32, device=dev),
+                                   torch.zeros((o_cap,), dtype=torch.bool, device=dev))
+                out = _FusedStepOut(-1, carry.prev_rot, carry.prev_trans, False, carry.ring_rot, carry.ring_trans,
+                                    carry.ring_kf, *skipped_obs)
+            outs.append(out)
+        stacked = {name: torch.stack(f) for name, f in zip(_FusedStepOut._fields, zip(*outs))
+                   if name not in ("kf_idx", "ba_flag")}
+        return carry, _FusedStepOut(kf_idx=torch.tensor([o.kf_idx for o in outs], dtype=torch.int32),
+                                    ba_flag=torch.tensor([o.ba_flag for o in outs]), **stacked)
 
 
 def _flagship_chunk(carry1, carry2: _FusedCarry, block, intrinsics, config: PointCloudConfig, uniforms=None,
@@ -774,7 +788,8 @@ def _flagship_chunk(carry1, carry2: _FusedCarry, block, intrinsics, config: Poin
     carry, phase-2 carry, VoChunkResult, stacked step outputs)."""
     carry1, res, feats = vo_frontend(*carry1, block, intrinsics, config.vo, uniforms=uniforms, seed=seed,
                                      first_step=first_step, prev_frame=prev_frame)
-    is_kf = res.is_keyframe.cpu().numpy()
+    with span("flagship.keyframes.read"):
+        is_kf = res.is_keyframe.cpu().numpy()
     carry2, outs = _fused_phase2_chunk(carry2, feats, res.rotations, res.translations, is_kf, intrinsics, config)
     return carry1, carry2, res, outs
 
@@ -802,66 +817,70 @@ def run_point_cloud_fused(frames, intrinsics: CameraIntrinsics, config: PointClo
     run once all device work has finished, before the result is copied to
     the host.
     """
-    dev = resolve_device(device)
-    t_total = frames.shape[0]
-    n_pairs = t_total - 1
-    chunk = chunk_size or max(n_pairs, 1)
+    with span("flagship.run", root=True):
+        dev = resolve_device(device)
+        t_total = frames.shape[0]
+        n_pairs = t_total - 1
+        chunk = chunk_size or max(n_pairs, 1)
 
-    feats0 = _first_features(frames, config, dev)
-    carry2 = _fused_carry_init(config, feats0, pose_dtype)
-    trajectory = Trajectory()
-    init_chain = init_obs = None
-    if resume_from:
-        map_state, kf_rots, kf_trans, kf_frames, trajectory, init_obs = _load_resume(resume_from, config, dev)
-        init_chain = (kf_rots, kf_trans, kf_frames)
-        table, head = _free_table(map_state)
-        bits, pops = descriptor_bits(map_state.descriptors)
-        # The ring keeps its keyframe-0 entry, as in the JAX package: it holds
-        # no observation and is the first window's first frozen anchor.
-        carry2 = carry2._replace(
-            map_state=map_state, free_slots=table, free_head=head, map_bits=bits, map_pops=pops,
-            kf_count=len(kf_rots), prev_rot=torch.as_tensor(kf_rots[-1], dtype=pose_dtype, device=dev),
-            prev_trans=torch.as_tensor(kf_trans[-1], dtype=pose_dtype, device=dev))
-    carry1 = (feats0, KeyframeState.initial(dev), torch.as_tensor(trajectory.global_pose, dtype=pose_dtype,
-                                                                  device=dev))
+        feats0 = _first_features(frames, config, dev)
+        carry2 = _fused_carry_init(config, feats0, pose_dtype)
+        trajectory = Trajectory()
+        init_chain = init_obs = None
+        if resume_from:
+            map_state, kf_rots, kf_trans, kf_frames, trajectory, init_obs = _load_resume(resume_from, config, dev)
+            init_chain = (kf_rots, kf_trans, kf_frames)
+            table, head = _free_table(map_state)
+            bits, pops = descriptor_bits(map_state.descriptors)
+            # The ring keeps its keyframe-0 entry, as in the JAX package: it holds
+            # no observation and is the first window's first frozen anchor.
+            carry2 = carry2._replace(
+                map_state=map_state, free_slots=table, free_head=head, map_bits=bits, map_pops=pops,
+                kf_count=len(kf_rots), prev_rot=torch.as_tensor(kf_rots[-1], dtype=pose_dtype, device=dev),
+                prev_trans=torch.as_tensor(kf_trans[-1], dtype=pose_dtype, device=dev))
+        carry1 = (feats0, KeyframeState.initial(dev), torch.as_tensor(trajectory.global_pose, dtype=pose_dtype,
+                                                                      device=dev))
 
-    step_outs, res_list = [], []
-    for start in range(0, n_pairs, chunk):
-        stop = min(start + chunk, n_pairs)
-        block = torch.as_tensor(frames[start + 1 : stop + 1]).to(dev)
-        draws = None if uniforms is None else torch.as_tensor(uniforms[start:stop]).to(dev)
-        prev_frame = torch.as_tensor(frames[start]).to(dev) if config.vo.refine_matches else None
-        carry1, carry2, res, outs = _flagship_chunk(carry1, carry2, block, intrinsics, config, draws, seed,
-                                                    first_step=start + 1, prev_frame=prev_frame)
-        step_outs.append(outs)
-        res_list.append(res)
+        step_outs, res_list = [], []
+        for start in range(0, n_pairs, chunk):
+            stop = min(start + chunk, n_pairs)
+            with span("flagship.chunk"):
+                with span("vo.upload"):
+                    block = torch.as_tensor(frames[start + 1 : stop + 1]).to(dev)
+                    draws = None if uniforms is None else torch.as_tensor(uniforms[start:stop]).to(dev)
+                    prev_frame = torch.as_tensor(frames[start]).to(dev) if config.vo.refine_matches else None
+                carry1, carry2, res, outs = _flagship_chunk(carry1, carry2, block, intrinsics, config, draws, seed,
+                                                            first_step=start + 1, prev_frame=prev_frame)
+            step_outs.append(outs)
+            res_list.append(res)
 
-    if on_compute_done is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        on_compute_done()
-    # One fetch at the end: every output leaf, concatenated over the chunks.
-    outs = rot_all = trans_all = iskf_all = None
-    successful = 0
-    if step_outs:  # empty for a single-frame clip (keyframe 0 only)
-        outs = _FusedStepOut(*[torch.cat(parts).cpu().numpy() for parts in zip(*step_outs)])
-        rot_all, trans_all, iskf_all, success = (torch.cat(parts).cpu().numpy() for parts in zip(
-            *[(r.rotations, r.translations, r.is_keyframe, r.success) for r in res_list]))
-        successful = int(success.sum())
-    kf_rots, kf_trans, kf_frames, obs, ba_runs = _phase2_host_reconstruct(
-        outs, rot_all, trans_all, iskf_all, trajectory, config, init_chain=init_chain, init_obs=init_obs)
-    return PointCloudResult(
-        map_state=carry2.map_state,
-        trajectory=trajectory,
-        keyframe_rotations=np.stack(kf_rots),
-        keyframe_translations=np.stack(kf_trans),
-        keyframe_frame_idx=np.asarray(kf_frames),
-        ba_runs=ba_runs,
-        total_frames=t_total,
-        successful_frames=successful,
-        observations=(np.asarray(obs[0], np.int32), np.asarray(obs[1], np.int32),
-                      np.asarray(obs[2], np.float32).reshape(-1, 2), np.asarray(obs[3], np.int32)),
-    )
+        if on_compute_done is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            on_compute_done()
+        # One fetch at the end: every output leaf, concatenated over the chunks.
+        with span("flagship.read"):
+            outs = rot_all = trans_all = iskf_all = None
+            successful = 0
+            if step_outs:  # empty for a single-frame clip (keyframe 0 only)
+                outs = _FusedStepOut(*[torch.cat(parts).cpu().numpy() for parts in zip(*step_outs)])
+                rot_all, trans_all, iskf_all, success = (torch.cat(parts).cpu().numpy() for parts in zip(
+                    *[(r.rotations, r.translations, r.is_keyframe, r.success) for r in res_list]))
+                successful = int(success.sum())
+            kf_rots, kf_trans, kf_frames, obs, ba_runs = _phase2_host_reconstruct(
+                outs, rot_all, trans_all, iskf_all, trajectory, config, init_chain=init_chain, init_obs=init_obs)
+        return PointCloudResult(
+            map_state=carry2.map_state,
+            trajectory=trajectory,
+            keyframe_rotations=np.stack(kf_rots),
+            keyframe_translations=np.stack(kf_trans),
+            keyframe_frame_idx=np.asarray(kf_frames),
+            ba_runs=ba_runs,
+            total_frames=t_total,
+            successful_frames=successful,
+            observations=(np.asarray(obs[0], np.int32), np.asarray(obs[1], np.int32),
+                          np.asarray(obs[2], np.float32).reshape(-1, 2), np.asarray(obs[3], np.int32)),
+        )
 
 
 def _phase2_host_reconstruct(outs, rot_all, trans_all, iskf_all, trajectory, config, init_chain=None,

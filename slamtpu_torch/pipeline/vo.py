@@ -47,6 +47,7 @@ from ..ops.hamming import descriptor_bits
 from ..ops.lie import se3_matrix
 from ..ops.patch_refine import refine_matches
 from ..ops.ransac import PairDraws, RansacConfig, as_draws, pair_draws
+from ..utils.metrics import span
 
 __all__ = ["VoConfig", "VoChunkResult", "VoRun", "seed_features", "vo_frontend", "vo_chunk", "vo_chunk_batched",
            "run_vo", "run_vo_batched"]
@@ -117,8 +118,9 @@ def _detect(frames, config: VoConfig) -> OrbFeatures:
     over all B*C frames (one launch of each kernel), each sequence's pyramid
     built alone."""
     b, c = frames.shape[:2]
-    feats = detect_and_compute(frames.reshape(b * c, *frames.shape[2:]), config.orb, groups=b)
-    return OrbFeatures(*[x.reshape(b, c, *x.shape[1:]) for x in feats])
+    with span("vo.detect"):
+        feats = detect_and_compute(frames.reshape(b * c, *frames.shape[2:]), config.orb, groups=b)
+        return OrbFeatures(*[x.reshape(b, c, *x.shape[1:]) for x in feats])
 
 
 def _pair_poses(prev_feats: OrbFeatures, feats_new: OrbFeatures, frames, intrinsics: CameraIntrinsics,
@@ -130,47 +132,49 @@ def _pair_poses(prev_feats: OrbFeatures, feats_new: OrbFeatures, frames, intrins
     num_good, num_inliers, success, all [B, C])."""
     device = frames.device
     b, c = frames.shape[:2]
-    feats_all = OrbFeatures(*[torch.cat([p[:, None], f], dim=1) for p, f in zip(prev_feats, feats_new)])
 
     def pairs(x, first: bool):
         """[B, C+1, ...] -> the pairs' first (or second) frames as [B*C, ...]."""
         x = x[:, :-1] if first else x[:, 1:]
         return x.reshape(b * c, *x.shape[2:])
 
-    # Unpack descriptor bits once per frame (each frame is in two pairs).
-    bits, pops = descriptor_bits(feats_all.descriptors)
-    matcher = FeatureMatcher()
-    good = matcher.filter_good_matches(
-        matcher.match_from_bits(pairs(bits, True), pairs(pops, True), pairs(feats_all.mask, True),
-                                pairs(bits, False), pairs(pops, False), pairs(feats_all.mask, False)),
-        config.match_ratio,
-    )
-    pts1 = pairs(feats_all.xy, True)
-    pts2 = torch.gather(pairs(feats_all.xy, False), 1, good.train_idx[..., None].expand(-1, -1, 2))
-    num_good = torch.sum(good.mask, dim=-1, dtype=torch.int32)
-    enough = num_good >= config.min_matches
+    with span("vo.pose"):
+        with span("pose.match"):
+            feats_all = OrbFeatures(*[torch.cat([p[:, None], f], dim=1) for p, f in zip(prev_feats, feats_new)])
+            # Unpack descriptor bits once per frame (each frame is in two pairs).
+            bits, pops = descriptor_bits(feats_all.descriptors)
+            matcher = FeatureMatcher()
+            good = matcher.filter_good_matches(
+                matcher.match_from_bits(pairs(bits, True), pairs(pops, True), pairs(feats_all.mask, True),
+                                        pairs(bits, False), pairs(pops, False), pairs(feats_all.mask, False)),
+                config.match_ratio,
+            )
+            pts1 = pairs(feats_all.xy, True)
+            pts2 = torch.gather(pairs(feats_all.xy, False), 1, good.train_idx[..., None].expand(-1, -1, 2))
+            num_good = torch.sum(good.mask, dim=-1, dtype=torch.int32)
+            enough = num_good >= config.min_matches
 
-    if config.refine_matches and prev_frame is not None:
-        imgs = torch.cat([torch.as_tensor(prev_frame, device=device)[:, None], frames], dim=1)
-        pts2 = refine_matches(pairs(imgs, True), pairs(imgs, False), pts1, pts2, good.mask,
-                              radius=config.refine_radius, search=config.refine_search)
+            if config.refine_matches and prev_frame is not None:
+                imgs = torch.cat([torch.as_tensor(prev_frame, device=device)[:, None], frames], dim=1)
+                pts2 = refine_matches(pairs(imgs, True), pairs(imgs, False), pts1, pts2, good.mask,
+                                      radius=config.refine_radius, search=config.refine_search)
 
-    if config.ransac.octave_sigma:
-        oct1 = pairs(feats_all.octave, True)
-        oct2 = torch.gather(pairs(feats_all.octave, False), 1, good.train_idx)
-        base = torch.tensor(config.orb.scale_factor, dtype=pts1.dtype, device=device)
-        sigma = torch.pow(base, torch.maximum(oct1, oct2).to(pts1.dtype))
-    else:
-        sigma = torch.ones_like(pts1[..., 0])
+            if config.ransac.octave_sigma:
+                oct1 = pairs(feats_all.octave, True)
+                oct2 = torch.gather(pairs(feats_all.octave, False), 1, good.train_idx)
+                base = torch.tensor(config.orb.scale_factor, dtype=pts1.dtype, device=device)
+                sigma = torch.pow(base, torch.maximum(oct1, oct2).to(pts1.dtype))
+            else:
+                sigma = torch.ones_like(pts1[..., 0])
 
-    flat_draws = PairDraws(*[None if d is None else d.reshape(b * c, *d.shape[2:]) for d in draws])
-    poses = estimate_relative_pose(intrinsics, pts1, pts2, mask=good.mask, config=config.ransac,
-                                   sigma=sigma, uniforms=flat_draws)
-    success = (poses.valid & enough).reshape(b, c)
-    if step_mask is not None:
-        success = success & torch.as_tensor(step_mask, dtype=torch.bool, device=device)
-    return (poses.rotation.reshape(b, c, 3, 3), poses.translation.reshape(b, c, 3), num_good.reshape(b, c),
-            poses.num_inliers.reshape(b, c), success)
+        flat_draws = PairDraws(*[None if d is None else d.reshape(b * c, *d.shape[2:]) for d in draws])
+        poses = estimate_relative_pose(intrinsics, pts1, pts2, mask=good.mask, config=config.ransac,
+                                       sigma=sigma, uniforms=flat_draws)
+        success = (poses.valid & enough).reshape(b, c)
+        if step_mask is not None:
+            success = success & torch.as_tensor(step_mask, dtype=torch.bool, device=device)
+        return (poses.rotation.reshape(b, c, 3, 3), poses.translation.reshape(b, c, 3), num_good.reshape(b, c),
+                poses.num_inliers.reshape(b, c), success)
 
 
 def _keyframe_scan(config: KeyframeConfig, kf_state: KeyframeState, rotation, translation, num_good, success):
@@ -179,12 +183,13 @@ def _keyframe_scan(config: KeyframeConfig, kf_state: KeyframeState, rotation, tr
     (state after the last step, is_keyframe [B, C])."""
     state = kf_state
     is_kf = []
-    for i in range(success.shape[1]):
-        stepped, kf = keyframe_step(config, state, rotation[:, i], translation[:, i], num_good[:, i])
-        ok = success[:, i]
-        state = KeyframeState(*[torch.where(ok, a, s) for a, s in zip(stepped, state)])
-        is_kf.append(kf & ok)
-    return state, torch.stack(is_kf, dim=1)
+    with span("vo.keyframe_scan"):
+        for i in range(success.shape[1]):
+            stepped, kf = keyframe_step(config, state, rotation[:, i], translation[:, i], num_good[:, i])
+            ok = success[:, i]
+            state = KeyframeState(*[torch.where(ok, a, s) for a, s in zip(stepped, state)])
+            is_kf.append(kf & ok)
+        return state, torch.stack(is_kf, dim=1)
 
 
 def _keyframe_transforms(rotation, translation, is_kf, dtype):
@@ -207,8 +212,9 @@ def _frontend(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, fra
     state, is_kf = _keyframe_scan(config.keyframe, kf_state, rotation, translation, num_good, success)
 
     # Trajectory: one prefix product per sequence from the carried pose.
-    rel = _keyframe_transforms(rotation, translation, is_kf, global_pose.dtype)
-    globals_ = compose_relative_transforms(torch.cat([global_pose[:, None], rel], dim=1))[:, 1:]
+    with span("vo.trajectory"):
+        rel = _keyframe_transforms(rotation, translation, is_kf, global_pose.dtype)
+        globals_ = compose_relative_transforms(torch.cat([global_pose[:, None], rel], dim=1))[:, 1:]
 
     new_prev = OrbFeatures(*[x[:, -1] for x in feats_new])
     result = VoChunkResult(rotation, translation, num_good, num_inliers, success, is_kf, globals_)
@@ -235,7 +241,8 @@ def vo_frontend(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, f
     device = global_pose.device
     frames = torch.as_tensor(frames, device=device)
     c, k = frames.shape[0], config.orb.max_features
-    draws = pair_draws(seed, _step_pairs(first_step, c), config.ransac, k, device, given=as_draws(uniforms))
+    with span("vo.draws"):
+        draws = pair_draws(seed, _step_pairs(first_step, c), config.ransac, k, device, given=as_draws(uniforms))
     carry, result, feats_new = _frontend(
         OrbFeatures(*[x[None] for x in prev_feats]), KeyframeState(*[x[None] for x in kf_state]), global_pose[None],
         frames[None], intrinsics, config, step_mask, PairDraws(*[None if d is None else d[None] for d in draws]),
@@ -250,8 +257,9 @@ def vo_chunk(prev_feats: OrbFeatures, kf_state: KeyframeState, global_pose, fram
              uniforms=None, seed: int = 0, first_step: int = 0, prev_frame=None):
     """Process C new frames against the carried previous frame.
     Returns ((new_prev_feats, new_kf_state, new_global_pose), VoChunkResult)."""
-    carry, result, _ = vo_frontend(prev_feats, kf_state, global_pose, frames, intrinsics, config,
-                                   step_mask, uniforms, seed, first_step, prev_frame)
+    with span("vo.chunk"):
+        carry, result, _ = vo_frontend(prev_feats, kf_state, global_pose, frames, intrinsics, config,
+                                       step_mask, uniforms, seed, first_step, prev_frame)
     return carry, result
 
 
@@ -267,15 +275,18 @@ def vo_chunk_batched(prev_feats: OrbFeatures, kf_states: KeyframeState, global_p
     Returns ((new_prev_feats, new_kf_states, new_global_poses),
     VoChunkResult with a leading [B])."""
     device = global_poses.device
-    frames = torch.as_tensor(frames, device=device)
-    b, c = frames.shape[:2]
-    seeds = list(range(b)) if seeds is None else list(seeds)
-    given = as_draws(uniforms)
-    per_seq = [pair_draws(seeds[i], _step_pairs(first_step, c), config.ransac, config.orb.max_features, device,
-                          given=_index_draws(given, i)) for i in range(b)]
-    draws = PairDraws(*[None if parts[0] is None else torch.stack(parts) for parts in zip(*per_seq)])
-    carry, result, _ = _frontend(prev_feats, kf_states, global_poses, frames, intrinsics, config, step_mask, draws,
-                                 None if prev_frames is None else torch.as_tensor(prev_frames, device=device))
+    with span("vo.chunk"):
+        frames = torch.as_tensor(frames, device=device)
+        b, c = frames.shape[:2]
+        seeds = list(range(b)) if seeds is None else list(seeds)
+        given = as_draws(uniforms)
+        with span("vo.draws"):
+            per_seq = [pair_draws(seeds[i], _step_pairs(first_step, c), config.ransac, config.orb.max_features,
+                                  device, given=_index_draws(given, i)) for i in range(b)]
+            draws = PairDraws(*[None if parts[0] is None else torch.stack(parts) for parts in zip(*per_seq)])
+        prev_frames = None if prev_frames is None else torch.as_tensor(prev_frames, device=device)
+        carry, result, _ = _frontend(prev_feats, kf_states, global_poses, frames, intrinsics, config, step_mask,
+                                     draws, prev_frames)
     return carry, result
 
 
@@ -348,23 +359,26 @@ def run_vo(frames, intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(),
     if t_total < 2:
         return _empty_run(t_total)
     chunk = chunk_size or t_total
-    carry = (seed_features(config.orb, dev), KeyframeState.initial(dev),
-             torch.eye(4, dtype=pose_dtype, device=dev))
-    given = as_draws(uniforms)
-    results = []
-    for start in range(0, t_total, chunk):
-        stop = min(start + chunk, t_total)
-        block = torch.as_tensor(frames[start:stop]).to(dev)  # uint8 crosses the bus
-        step_mask = torch.arange(start, stop, device=dev) >= 1
-        prev_frame = torch.as_tensor(frames[max(start - 1, 0)]).to(dev) if config.refine_matches else None
-        carry, res = vo_chunk(*carry, block, intrinsics, config, step_mask,
-                              uniforms=_index_draws(given, _step_pairs(start, stop - start)), seed=seed,
-                              first_step=start, prev_frame=prev_frame)
-        results.append(res)
-    # One device->host copy per field; drop the masked seed step so row i
-    # is pair i.
-    merged = VoChunkResult(*[torch.cat(parts, dim=0)[1:].cpu().numpy() for parts in zip(*results)])
-    return _vo_run(merged, t_total, config.fps)
+    with span("vo.run", root=True):
+        carry = (seed_features(config.orb, dev), KeyframeState.initial(dev),
+                 torch.eye(4, dtype=pose_dtype, device=dev))
+        given = as_draws(uniforms)
+        results = []
+        for start in range(0, t_total, chunk):
+            stop = min(start + chunk, t_total)
+            with span("vo.upload"):
+                block = torch.as_tensor(frames[start:stop]).to(dev)  # uint8 crosses the bus
+                step_mask = torch.arange(start, stop, device=dev) >= 1
+                prev_frame = torch.as_tensor(frames[max(start - 1, 0)]).to(dev) if config.refine_matches else None
+            carry, res = vo_chunk(*carry, block, intrinsics, config, step_mask,
+                                  uniforms=_index_draws(given, _step_pairs(start, stop - start)), seed=seed,
+                                  first_step=start, prev_frame=prev_frame)
+            results.append(res)
+        # One device->host copy per field; drop the masked seed step so row
+        # i is pair i.
+        with span("vo.read"):
+            merged = VoChunkResult(*[torch.cat(parts, dim=0)[1:].cpu().numpy() for parts in zip(*results)])
+            return _vo_run(merged, t_total, config.fps)
 
 
 def run_vo_batched(frames, intrinsics: CameraIntrinsics, config: VoConfig = VoConfig(),
@@ -379,21 +393,25 @@ def run_vo_batched(frames, intrinsics: CameraIntrinsics, config: VoConfig = VoCo
     if t_total < 2:
         return [_empty_run(t_total) for _ in range(b)]
     chunk = chunk_size or t_total
-    carry = (OrbFeatures(*[x.expand(b, *x.shape).clone() for x in seed_features(config.orb, dev)]),
-             KeyframeState(*[x.expand(b).clone() for x in KeyframeState.initial(dev)]),
-             torch.eye(4, dtype=pose_dtype, device=dev).expand(b, 4, 4).clone())
-    given = as_draws(uniforms)
-    seeds = [seed + i for i in range(b)]
-    results = []
-    for start in range(0, t_total, chunk):
-        stop = min(start + chunk, t_total)
-        block = torch.as_tensor(frames[:, start:stop]).to(dev)
-        step_mask = torch.arange(start, stop, device=dev) >= 1
-        prev_frames = torch.as_tensor(frames[:, max(start - 1, 0)]).to(dev) if config.refine_matches else None
-        steps = _step_pairs(start, stop - start)
-        draws = PairDraws(*[None if d is None else torch.as_tensor(d)[:, steps] for d in given])
-        carry, res = vo_chunk_batched(*carry, block, intrinsics, config, step_mask, uniforms=draws, seeds=seeds,
-                                      first_step=start, prev_frames=prev_frames)
-        results.append(res)
-    merged = VoChunkResult(*[torch.cat(parts, dim=1)[:, 1:].cpu().numpy() for parts in zip(*results)])
-    return [_vo_run(VoChunkResult(*[x[i] for x in merged]), t_total, config.fps) for i in range(b)]
+    with span("vo.run_batched", root=True):
+        carry = (OrbFeatures(*[x.expand(b, *x.shape).clone() for x in seed_features(config.orb, dev)]),
+                 KeyframeState(*[x.expand(b).clone() for x in KeyframeState.initial(dev)]),
+                 torch.eye(4, dtype=pose_dtype, device=dev).expand(b, 4, 4).clone())
+        given = as_draws(uniforms)
+        seeds = [seed + i for i in range(b)]
+        results = []
+        for start in range(0, t_total, chunk):
+            stop = min(start + chunk, t_total)
+            with span("vo.upload"):
+                block = torch.as_tensor(frames[:, start:stop]).to(dev)
+                step_mask = torch.arange(start, stop, device=dev) >= 1
+                prev_frames = (torch.as_tensor(frames[:, max(start - 1, 0)]).to(dev) if config.refine_matches
+                               else None)
+                steps = _step_pairs(start, stop - start)
+                draws = PairDraws(*[None if d is None else torch.as_tensor(d)[:, steps] for d in given])
+            carry, res = vo_chunk_batched(*carry, block, intrinsics, config, step_mask, uniforms=draws,
+                                          seeds=seeds, first_step=start, prev_frames=prev_frames)
+            results.append(res)
+        with span("vo.read"):
+            merged = VoChunkResult(*[torch.cat(parts, dim=1)[:, 1:].cpu().numpy() for parts in zip(*results)])
+            return [_vo_run(VoChunkResult(*[x[i] for x in merged]), t_total, config.fps) for i in range(b)]

@@ -10,7 +10,14 @@ slamtpu/utils/metrics.py).
   * `RerunLogger` - optional Rerun logging of trajectory, points and frames,
     gated on the `rerun` package (a no-op stub without it).
   * `profile_trace` - a torch.profiler trace around a block, written as a
-    Chrome trace.
+    Chrome trace, with the spans below as ranges above their kernels.
+  * `span`, `count`, `enable` / `disable` / `tracing`, `records` - the
+    port's spans and counters: named host intervals on the
+    `time.perf_counter_ns` clock, nested, each root span opening a request,
+    and integer counters keyed by the innermost open span. While tracing is
+    on and CUDA is present, every synchronizing CUDA call is counted as
+    `syncs` (`torch.cuda.set_sync_debug_mode("warn")`). Off by default,
+    where a span is one flag test and a shared no-op context.
 """
 
 from __future__ import annotations
@@ -20,12 +27,14 @@ import dataclasses
 import os
 import tempfile
 import time
-from typing import Dict, List, Optional
+import warnings
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["force_sync", "StepTimer", "MetricsLog", "RerunLogger", "draw_match_image", "profile_trace"]
+__all__ = ["force_sync", "StepTimer", "MetricsLog", "RerunLogger", "draw_match_image", "profile_trace", "span",
+           "count", "enable", "disable", "tracing", "records", "SpanRecord", "TraceRecords"]
 
 
 def _tensors(tree):
@@ -257,13 +266,168 @@ def draw_match_image(img1, img2, pts1, pts2, max_lines: int = 200) -> np.ndarray
 def profile_trace(log_dir: str | None = None):
     """torch.profiler around a block (CPU, and CUDA when a card is there);
     on exit the Chrome trace is written to <log_dir>/trace.json (open it in
-    chrome://tracing or Perfetto). Yields log_dir; log_dir defaults to
-    slamtpu_torch_trace under the temporary directory."""
+    chrome://tracing or Perfetto). Tracing is on inside the block and each
+    span is also a profiler range, so the trace shows the spans above their
+    kernels. Yields log_dir; log_dir defaults to slamtpu_torch_trace under
+    the temporary directory."""
     from torch.profiler import ProfilerActivity, profile
 
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "slamtpu_torch_trace")
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, tracing(ranges=True):
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# Spans and counters. One tracer per process, driven from the thread that
+# runs the pipelines; spans open at most once per chunk, keyframe or LM
+# iteration, never per pair or hypothesis.
+
+
+class SpanRecord(NamedTuple):
+    id: int
+    name: str
+    parent: Optional[int]  # id of the enclosing span; None at the top
+    request: Optional[int]  # request of the enclosing root span; None outside one
+    start_ns: int  # time.perf_counter_ns
+    end_ns: int
+
+
+class TraceRecords(NamedTuple):
+    spans: List[SpanRecord]  # in the order they closed
+    counts: Dict[tuple, int]  # (counter, id of the innermost open span or None) -> total
+
+
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class _Tracer:
+    def __init__(self):
+        self.on = False
+        self.ranges = False  # also open a torch.profiler.record_function range per span
+        self.stack: list = []  # open spans as [id, name, parent, request, start_ns]
+        self.spans: List[SpanRecord] = []
+        self.counts: Dict[tuple, int] = {}
+        self.next_id = 0
+        self.next_request = 0
+        self.restore = None  # (sync debug mode, warnings.catch_warnings) while syncs are counted
+
+
+_TRACER = _Tracer()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "root", "frame", "range")
+
+    def __init__(self, name: str, root: bool):
+        self.name, self.root, self.range = name, root, None
+
+    def __enter__(self):
+        t = _TRACER
+        parent = t.stack[-1] if t.stack else None
+        if self.root:
+            request, t.next_request = t.next_request, t.next_request + 1
+        else:
+            request = parent[3] if parent else None
+        self.frame = [t.next_id, self.name, parent[0] if parent else None, request, 0]
+        t.next_id += 1
+        t.stack.append(self.frame)
+        if t.ranges:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.frame[4] = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _TRACER.stack.remove(self.frame)
+        _TRACER.spans.append(SpanRecord(*self.frame, end))
+        return False
+
+
+def span(name: str, root: bool = False):
+    """A context manager recording the host interval of its block as
+    `name` (dotted; a name ending in ".read" marks a block that waits for
+    device data on the host). root=True opens a new request id, which every
+    span below it carries. With tracing off: a shared no-op context."""
+    if not _TRACER.on:
+        return _OFF
+    return _Span(name, root)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add the host integer n to counter `name` under the innermost open
+    span (never read a tensor to count). A no-op with tracing off."""
+    t = _TRACER
+    if t.on:
+        key = (name, t.stack[-1][0] if t.stack else None)
+        t.counts[key] = t.counts.get(key, 0) + n
+
+
+def _counting_syncs(show):
+    def showwarning(message, category, filename, lineno, file=None, line=None):
+        if str(message).startswith(_SYNC_WARNING):
+            count("syncs")
+        else:
+            show(message, category, filename, lineno, file, line)
+
+    return showwarning
+
+
+def enable(ranges: bool = False) -> None:
+    """Turn tracing on (ranges: also open a profiler range per span). With
+    CUDA present, set the sync debug mode to "warn" and count each of its
+    warnings, every occurrence, as `syncs` instead of showing it."""
+    t = _TRACER
+    t.ranges = ranges
+    if t.on:
+        return
+    if torch.cuda.is_available():
+        caught = warnings.catch_warnings()
+        caught.__enter__()
+        warnings.filterwarnings("always", message=_SYNC_WARNING)
+        warnings.showwarning = _counting_syncs(warnings.showwarning)
+        t.restore = (torch.cuda.get_sync_debug_mode(), caught)
+        torch.cuda.set_sync_debug_mode("warn")
+    t.on = True
+
+
+def disable() -> None:
+    """Turn tracing off; restore the sync debug mode and the warning
+    filters of before `enable`. Records stay until `records` reads them."""
+    t = _TRACER
+    if not t.on:
+        return
+    t.on = t.ranges = False
+    if t.restore is not None:
+        mode, caught = t.restore
+        t.restore = None
+        torch.cuda.set_sync_debug_mode(mode)
+        caught.__exit__(None, None, None)
+
+
+@contextlib.contextmanager
+def tracing(ranges: bool = False):
+    """Tracing on inside the block; the state of before it afterwards."""
+    was_on, was_ranges = _TRACER.on, _TRACER.ranges
+    enable(ranges)
+    try:
+        yield
+    finally:
+        if was_on:
+            _TRACER.ranges = was_ranges
+        else:
+            disable()
+
+
+def records() -> TraceRecords:
+    """The spans closed and the counts made since the last call, handed
+    over and dropped here."""
+    t = _TRACER
+    out = TraceRecords(t.spans, t.counts)
+    t.spans, t.counts = [], {}
+    return out

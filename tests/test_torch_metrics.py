@@ -22,9 +22,12 @@ from slamtpu.pipeline import point_cloud as jpc
 from slamtpu.utils import metrics as jmetrics
 from slamtpu.utils import viz as jviz
 from slamtpu_torch import convert
+from slamtpu_torch.feature.detector import OrbConfig
 from slamtpu_torch.io.synthetic import render_sequence as t_render
 from slamtpu_torch.odometry.trajectory import Trajectory
+from slamtpu_torch.ops.ransac import RansacConfig
 from slamtpu_torch.pipeline import point_cloud as tpc
+from slamtpu_torch.pipeline.vo import VoConfig, run_vo
 from slamtpu_torch.utils import metrics, viz
 from test_rerun import _events, fake_rerun  # noqa: F401  (the fixture)
 from test_torch_point_cloud import CHUNK, FEATURES, ITERS, SCENE, _jax_config
@@ -102,11 +105,19 @@ def test_draw_trajectory_matches_jax(n, tmp_path):
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """The trace holds the port's spans as ranges (a small run_vo's
+    vo.pose among them); the tracer is off again after the block."""
+    scene = t_render(n_frames=3, height=64, width=96, n_points=200, seed=2, textured=True)
+    cfg = VoConfig(orb=OrbConfig(max_features=32, n_levels=2), ransac=RansacConfig(iters=4, min_solver="5pt"))
     with metrics.profile_trace(str(tmp_path / "trace")) as log_dir:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        run_vo(scene.frames, scene.intrinsics, cfg, device="cpu")
     path = os.path.join(log_dir, "trace.json")
     assert os.path.getsize(path) > 0
-    assert json.load(open(path))["traceEvents"]
+    events = json.load(open(path))["traceEvents"]
+    assert events and "vo.pose" in {e.get("name") for e in events}
+    assert metrics.span("vo.pose") is metrics.span("vo.run")  # off: the shared no-op
+    metrics.records()
 
 
 def _replay(fake, logger):
