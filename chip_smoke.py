@@ -19,6 +19,10 @@ Phases, each fatal on failure:
                16-level launch, its plain version and, where
                one exists, the PyTorch call computing the same function;
                counts K1's compass candidates for its operation bound;
+               the 5-point null space kernel (csrc/nullspace4.cu) against
+               torch.linalg.qr at the vo-clip257 and vo-batch4 chunks'
+               shapes (32 x 64 and 4 x 32 x 64 systems), timed the same way
+               beside the library QR, with its bound;
   3. compass - the share of the clip's pixels (all chunks and levels) that
                pass K1's compass pre-test, and that have a FAST score;
   4. vo      - runs slamtpu_torch.pipeline.vo.run_vo with VoConfig() defaults
@@ -159,6 +163,13 @@ BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 # and 16 of the other, negation, max, threshold compare).
 K1_OPS_PER_PIXEL = 83
 K1_OPS_PER_CANDIDATE = 179
+# The null space kernel, per 5x9 system (an FMA counted as two): 45 products
+# to build A^T, 440 operations of Householder QR, 150 for the block
+# reflector's T, 380 to form Q's last four columns; f32 bytes in (two [5, 2]
+# samples) and out (a [4, 3, 3] basis).
+NULLSPACE_OPS_PER_SYSTEM = 1015
+NULLSPACE_BYTES_PER_SYSTEM = 80 + 144
+NULLSPACE_CHUNKS = {"vo-clip257": (32, 64), "vo-batch4": (4, 32, 64)}  # hypotheses of one pose chunk
 N_FRAMES = 257  # bench.py's clip
 VO_REPEATS = 5
 OPTION_REPEATS = 3
@@ -371,6 +382,7 @@ def kernel_phase(torch, frames):
         f"({(k2_read + k2_write) / 1e6:.1f} MB); raw and blurred windows in one launch (descriptor_bins=0, "
         f"16 levels, bit-identical to the plain version) {times['k2_raw_and_blurred']:.4f} ms, twice the bytes: "
         f"bound {2 * k2_bound:.4f} ms")
+    nullspace, times["nullspace"] = nullspace_kernel_phase(torch)
     return [
         dict(name="corner_response", route="cuda", source="slamtpu_torch/csrc/corner_response.cu",
              replaces="slamtpu/ops/pallas_corner.py:165", launches=None, max_abs_err=k1_err,
@@ -380,7 +392,85 @@ def kernel_phase(torch, frames):
              replaces="slamtpu/ops/pallas_patch.py:80", launches=None, max_abs_err=k2_err,
              ms=times["k2"], plain_ms=times["k2_plain"], bound_ms=k2_bound, bound_by="bytes",
              library_ms=times["k2_lib"]),
+        nullspace,
     ], times
+
+
+def _design_matrix(p1, p2):
+    """[..., 5, 2] samples -> [..., 5, 9] rows x2 (x) x1 of homogeneous points."""
+    x1, x2 = (p.new_ones((*p.shape[:-1], 3)) for p in (p1, p2))
+    x1[..., :2], x2[..., :2] = p1, p2
+    return (x2[..., :, :, None] * x1[..., :, None, :]).reshape(*p1.shape[:-1], 9)
+
+
+def nullspace_kernel_phase(torch):
+    """The 5-point null space kernel against torch.linalg.qr (its plain
+    version) on the card at each VO cell's chunk of hypotheses, on
+    independent uniform samples and on samples of two nearby views (small
+    parallax, ill-conditioned A): bit-identical to the library's basis;
+    orthonormal, ||A basis|| <= 1e-5 ||A|| and batch-invariant on the
+    nearby views. Times by CUDA-graph replay; the library QR, which does not
+    capture, by CUDA events around eager calls."""
+    import numpy as np
+
+    from slamtpu_torch.ops import five_point
+
+    launches_before = five_point._nullspace4.launches
+    rng = np.random.default_rng(0)
+    out, err = {}, 0.0
+    for cell, shape in NULLSPACE_CHUNKS.items():
+        uni = [torch.from_numpy(rng.uniform(-0.8, 0.8, (*shape, 5, 2)).astype(np.float32)).cuda() for _ in range(2)]
+        got, ref = five_point._nullspace4(*uni), five_point._nullspace4_plain(*uni)
+        cell_err = float((got - ref).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"null space kernel at {shape}: not bit-identical to torch.linalg.qr "
+                                 f"(max abs err {cell_err})")
+        err = max(err, cell_err)
+        near = []
+        for i in range(5):  # distinct inputs for timing; near[0] also for the checks
+            x = np.stack([rng.uniform(-0.85, 0.9, (*shape, 5)), rng.uniform(-0.27, 0.27, (*shape, 5))], -1)
+            near.append([torch.from_numpy(v.astype(np.float32)).cuda()
+                         for v in (x, x + rng.normal(0.0, 0.01, x.shape))])
+        got = five_point._nullspace4(*near[0])
+        near_ref = five_point._nullspace4_plain(*near[0])
+        near_err = float((got - near_ref).abs().max())
+        if not torch.equal(got, near_ref):
+            raise AssertionError(f"null space kernel at {shape}, nearby views: not bit-identical to "
+                                 f"torch.linalg.qr (max abs err {near_err})")
+        b = got.reshape(-1, 4, 9).double()
+        a = _design_matrix(*near[0]).double().reshape(-1, 5, 9)
+        ortho = float((b @ b.transpose(-1, -2) - torch.eye(4, dtype=torch.float64, device=b.device)).abs().max())
+        resid = float((torch.linalg.matrix_norm(a @ b.transpose(-1, -2)) / torch.linalg.matrix_norm(a)).max())
+        alone = five_point._nullspace4(near[0][0].reshape(-1, 5, 2)[-1:].contiguous(),
+                                       near[0][1].reshape(-1, 5, 2)[-1:].contiguous())
+        if ortho > 1e-5 or resid > 1e-5 or not torch.equal(alone[0], got.reshape(-1, 4, 3, 3)[-1]):
+            raise AssertionError(f"null space kernel at {shape}: orthonormality {ortho}, residual {resid}, or "
+                                 f"the last system differs alone")
+        m = int(np.prod(shape))
+        lib_inputs = [_design_matrix(*p).transpose(-1, -2).contiguous() for p in near]  # A^T, as the plain version
+        bytes_ms = NULLSPACE_BYTES_PER_SYSTEM * m / HBM_BYTES_PER_S * 1e3
+        ops_ms = NULLSPACE_OPS_PER_SYSTEM * m / FP32_FLOP_PER_S * 1e3
+        out[cell] = dict(
+            systems=m, max_abs_err=cell_err, near_views_max_abs_err=near_err, orthonormality=ortho,
+            residual=resid,
+            ms=device_ms(torch, lambda p: five_point._nullspace4(*p), near, reps=20),
+            eager_ms=time_ms(torch, lambda p: five_point._nullspace4(*p), near, reps=4),
+            plain_ms=time_ms(torch, lambda p: five_point._nullspace4_plain(*p), near, reps=2),
+            library_ms=time_ms(torch, lambda at: torch.linalg.qr(at, mode="complete"), lib_inputs, reps=2),
+            bound_ms=max(bytes_ms, ops_ms), bound_by="operations" if ops_ms > bytes_ms else "bytes",
+        )
+        t = out[cell]
+        log(f"null space kernel, {cell} chunk {shape} ({m} systems): max abs err {cell_err:.3g} against "
+            f"torch.linalg.qr (uniform samples), {near_err:.3g} on two nearby views (orthonormal to {ortho:.3g}, "
+            f"residual {resid:.3g}, batch-invariant); one launch {t['ms']:.4f} ms (graph replay), eager "
+            f"{t['eager_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; torch.linalg.qr {t['library_ms']:.4f} ms; "
+            f"bound {t['bound_ms']:.6f} ms by {t['bound_by']} ({NULLSPACE_BYTES_PER_SYSTEM * m / 1e6:.3f} MB = "
+            f"{bytes_ms:.6f} ms; {NULLSPACE_OPS_PER_SYSTEM * m / 1e6:.2f} MFLOP = {ops_ms:.6f} ms)")
+    five_point._nullspace4.launches = launches_before
+    big = out["vo-batch4"]
+    return dict(name="nullspace4", route="cuda", source="slamtpu_torch/csrc/nullspace4.cu", replaces=None,
+                launches=None, max_abs_err=err, ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+                bound_by=big["bound_by"], library_ms=big["library_ms"]), out
 
 
 def compass_phase(torch, frames):
@@ -1615,7 +1705,7 @@ def main() -> int:
     if not all(counts == vo_launches for counts in paths.values()):
         raise AssertionError(f"the main paths launched the kernels differently: {paths}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"])
     parallel_launches, parallel = parallel_phase(torch, scene)
     paths.update(parallel_launches)  # held to their own counts: 9 for one rank, 2 a rank for four
     ba = ba_phase(torch)

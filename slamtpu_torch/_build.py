@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "slamtpu_torch"
-SOURCES = ("corner_response", "extract_patches")
+SOURCES = ("corner_response", "extract_patches", "nullspace4")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,7 +3,9 @@
 
 Given 5 normalized correspondences it returns up to N_ROOT_SLOTS (18)
 essential-matrix candidates with fixed shapes:
-  1. the 4-dimensional null space of the 5x9 design matrix (complete QR);
+  1. the 4-dimensional null space of the 5x9 design matrix (complete QR;
+     on CUDA tensors one launch of the hand-written kernel
+     csrc/nullspace4.cu, whose note says why and what bounds it);
   2. the ten cubic constraints over 20 monomials, expanded by polynomial
      arithmetic whose tables are built once from the monomial orders;
   3. Gauss-Jordan elimination (pivoted, branch-free), Nistér's row
@@ -19,12 +21,14 @@ JAX code appends them (padding with exact zeros).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import torch
 
-from ..utils.metrics import span
+from .. import _build
+from ..utils.metrics import count, span
 from .epipolar import _homogeneous
 
 __all__ = ["N_ROOT_SLOTS", "five_point_candidates"]
@@ -45,6 +49,8 @@ _DEG3 = [
 ]
 
 N_ROOT_SLOTS = 18  # 10 sign-change brackets + 4 Newton seeds + 4 siblings
+_NULLSPACE_LAUNCHERS = {torch.float32: "launch_nullspace4", torch.float64: "launch_nullspace4_f64"}
+_NULLSPACE_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 @functools.lru_cache()
@@ -257,17 +263,50 @@ def _real_roots_deg10(coeffs, n_grid: int = 512, bisect_iters: int = 30, newton_
     return torch.cat([roots, z, sib], dim=-1), torch.cat([valid, newton_valid, sib_valid], dim=-1)
 
 
-def _nullspace4(pts1, pts2):
+def _nullspace4_plain(pts1, pts2):
     """[..., 5, 2] normalized pairs -> [..., 4, 3, 3] orthonormal basis of
     the design matrix's null space: the last 4 columns of the complete QR
     factor of A^T (any orthonormal kernel basis serves the Nistér form)."""
+    x1 = _homogeneous(pts1)
+    x2 = _homogeneous(pts2)
+    a = (x2[..., :, :, None] * x1[..., :, None, :]).reshape(*x1.shape[:-1], 9)
+    q = torch.linalg.qr(a.transpose(-1, -2), mode="complete")[0]
+    basis = q[..., :, 5:].transpose(-1, -2)
+    return basis.reshape(*basis.shape[:-1], 3, 3)
+
+
+def _nullspace4(pts1, pts2):
+    """`_nullspace4_plain`'s contract; on CUDA tensors (f32 or f64,
+    contiguous, one device) one launch of the csrc/nullspace4.cu kernel,
+    which repeats the card's library QR operation for operation (in float32
+    the same basis to the bit), on CPU tensors the plain version."""
     with span("pose.nullspace"):
-        x1 = _homogeneous(pts1)
-        x2 = _homogeneous(pts2)
-        a = (x2[..., :, :, None] * x1[..., :, None, :]).reshape(*x1.shape[:-1], 9)
-        q = torch.linalg.qr(a.transpose(-1, -2), mode="complete")[0]
-        basis = q[..., :, 5:].transpose(-1, -2)
-        return basis.reshape(*basis.shape[:-1], 3, 3)
+        if pts1.device.type == "cpu" and pts2.device.type == "cpu":
+            return _nullspace4_plain(pts1, pts2)
+        if pts1.device.type != "cuda" or pts2.device != pts1.device:
+            raise ValueError(f"_nullspace4: points on {pts1.device} and {pts2.device}")
+        if pts1.dtype not in _NULLSPACE_LAUNCHERS or pts2.dtype != pts1.dtype:
+            raise ValueError(f"_nullspace4: needs float32 or float64 points, got {pts1.dtype} and {pts2.dtype}")
+        if pts1.shape != pts2.shape or pts1.dim() < 2 or tuple(pts1.shape[-2:]) != (5, 2):
+            raise ValueError(f"_nullspace4: needs two [..., 5, 2] tensors, got {tuple(pts1.shape)} and "
+                             f"{tuple(pts2.shape)}")
+        if not (pts1.is_contiguous() and pts2.is_contiguous()):
+            raise ValueError("_nullspace4: needs contiguous points")
+        basis = torch.empty((*pts1.shape[:-2], 4, 3, 3), dtype=pts1.dtype, device=pts1.device)
+        m = basis.numel() // 36
+        if m:
+            launch = _build.load("nullspace4", _NULLSPACE_LAUNCHERS[pts1.dtype], _NULLSPACE_ARGTYPES)
+            with torch.cuda.device(pts1.device):
+                err = launch(m, pts1.data_ptr(), pts2.data_ptr(), basis.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"_nullspace4: kernel launch failed with CUDA error {err}")
+            _nullspace4.launches += 1
+            count("pose.nullspace_kernel")
+        return basis
+
+
+_nullspace4.launches = 0
 
 
 def _solve_pivoted(a, b):

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from slamtpu_torch.ops import five_point
 from slamtpu_torch.ops.brief import PATCH_RADIUS
 from slamtpu_torch.ops.corner import (
     corner_response,
@@ -21,6 +22,7 @@ from slamtpu_torch.ops.patch import (
     extract_patches_levels_plain,
     extract_patches_plain,
 )
+from test_torch_nullspace import DEGENERATE, assert_null_basis, degenerate_sample, gap_bound
 
 pytestmark = pytest.mark.cuda
 
@@ -123,6 +125,97 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         extract_patches_batched(torch.zeros((1, 20, 20), device=cuda),
                                 torch.zeros((1, 1, 2), dtype=torch.int32, device=cuda), PATCH_RADIUS)
+
+
+def _systems(shape, seed, dtype=torch.float32):
+    """Independent uniform [*shape, 5, 2] samples in both views."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.uniform(-0.8, 0.8, (*shape, 5, 2))).to(dtype) for _ in range(2))
+
+
+def _nearby_views(shape, seed):
+    """[*shape, 5, 2] samples of two views ~5 px apart at KITTI's field of
+    view: small parallax, the ill-conditioned A of a forward-moving camera."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.uniform(-0.85, 0.9, (*shape, 5)), rng.uniform(-0.27, 0.27, (*shape, 5))], -1)
+    return tuple(torch.from_numpy(v.astype(np.float32)) for v in (x, x + rng.normal(0.0, 0.007, x.shape)))
+
+
+@pytest.mark.parametrize("shape,views", [((32, 64), "uniform"), ((4, 32, 64), "uniform"), ((4, 32, 64), "nearby")])
+def test_nullspace_kernel_is_the_library_qr_to_the_bit(cuda, shape, views):
+    """At the VO chunks' shapes: Q's last four columns exactly as the
+    library's complete QR of A^T gives them on the card, also where A is
+    ill-conditioned and any other rounding would move them by eps cond(A)."""
+    p1, p2 = (x.to(cuda) for x in (_systems(shape, 0) if views == "uniform" else _nearby_views(shape, 0)))
+    got = five_point._nullspace4(p1, p2)
+    assert got.shape == (*shape, 4, 3, 3) and got.dtype == torch.float32
+    assert torch.equal(got, five_point._nullspace4_plain(p1, p2))
+
+
+def test_nullspace_kernel_matches_library_qr_at_f64(cuda):
+    """float64 (the kernel's f32 order of operations, not the library's f64
+    one): element by element within 1e-12, or 4 eps kappa(A) for a system
+    whose conditioning alone parts two QRs by more (`gap_bound`)."""
+    p1, p2 = (x.to(cuda) for x in _systems((32, 64), 0, torch.float64))
+    got = five_point._nullspace4(p1, p2)
+    assert got.dtype == torch.float64
+    gap = (got - five_point._nullspace4_plain(p1, p2)).abs().amax((-1, -2, -3)).cpu()
+    assert bool((gap <= gap_bound(p1, p2, 1e-12)).all())
+
+
+@pytest.mark.parametrize("name", ("random",) + DEGENERATE)
+def test_nullspace_kernel_is_an_orthonormal_null_basis(cuda, name):
+    p1, p2 = _systems((32, 64), 3) if name == "random" else degenerate_sample(name)
+    p1, p2 = p1.to(cuda), p2.to(cuda)
+    assert_null_basis(five_point._nullspace4(p1, p2), p1, p2)
+
+
+def test_nullspace_kernel_is_batch_invariant(cuda):
+    """A system's basis is the same bits alone as inside 8,192 systems."""
+    p1, p2 = (x.to(cuda) for x in _systems((8192,), 1))
+    batch = five_point._nullspace4(p1, p2)
+    for i in (0, 1, 127, 128, 4095, 8191):
+        alone = five_point._nullspace4(p1[i : i + 1].contiguous(), p2[i : i + 1].contiguous())
+        assert torch.equal(alone[0], batch[i])
+
+
+def test_nullspace_kernel_makes_no_host_sync_and_counts_its_launches(cuda):
+    p1, p2 = (x.to(cuda) for x in _systems((4, 32, 64), 2))
+    five_point._nullspace4(p1, p2)  # build and load outside the check
+    torch.cuda.synchronize()
+    before = five_point._nullspace4.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            five_point._nullspace4(p1, p2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert five_point._nullspace4.launches == before + 3
+
+
+def test_nullspace_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    p1, p2 = (x.to(cuda) for x in _systems((2, 3), 2))
+    for a, b in ((p1.half(), p2.half()), (p1[..., :4, :].contiguous(), p2[..., :4, :].contiguous()),
+                 (p1.transpose(0, 1), p2.transpose(0, 1)), (p1, p2.cpu()), (p1.cpu(), p2)):
+        with pytest.raises(ValueError):
+            five_point._nullspace4(a, b)
+
+
+def test_nullspace_kernel_counter_counts_the_chunks_of_run_vo(cuda):
+    """Traced run_vo on the card: the main path's null space went through
+    the kernel once a chunk, as the `pose.nullspace_kernel` counter says."""
+    from slamtpu_torch.pipeline.vo import run_vo
+    from slamtpu_torch.utils import metrics
+
+    scene, cfg = _options_scene()
+    before = five_point._nullspace4.launches
+    with metrics.tracing():
+        run_vo(scene.frames, scene.intrinsics, cfg, chunk_size=4, seed=2, device=cuda)
+    rec = metrics.records()
+    chunks = sum(s.name == "vo.chunk" for s in rec.spans)
+    counted = sum(n for (name, _), n in rec.counts.items() if name == "pose.nullspace_kernel")
+    assert chunks == -(-len(scene.frames) // 4)
+    assert counted == chunks == five_point._nullspace4.launches - before
 
 
 def _ba_problem(seed, n_poses, n_points, dtype):
