@@ -929,29 +929,12 @@ def flagship_reference_phase(torch):
     return dict(census=census, rot_diff=dr, trans_diff=dt)
 
 
-def conv_flop_per_frame(torch, model) -> float:
-    """2 x the multiply-adds of every convolution MonoDepth2's forward runs
-    at the model's size, from the output shapes of a pass on the meta device
-    (no data, no compute). Resize, BatchNorm, activations and the skip
-    concatenations are not counted."""
-    import copy
-
-    macs = []
-    enc, dec = copy.deepcopy(model.encoder).to("meta"), copy.deepcopy(model.decoder).to("meta")
-    hooks = [m.register_forward_hook(lambda m, i, o: macs.append(o.numel() * m.weight[0].numel()))
-             for mod in (enc, dec) for m in mod.modules() if isinstance(m, torch.nn.Conv2d)]
-    with torch.no_grad():
-        dec(enc(torch.zeros((1, 3, model.height, model.width), device="meta")), scales=(0,))
-    for h in hooks:
-        h.remove()
-    return 2.0 * sum(macs)
-
-
 def depth_phase(torch, scene):
     """MonoDepth2 at bench.py's configuration on the card, then the
     depth-mapping pipeline on the clip and on ground-truth depth."""
     import numpy as np
 
+    from benchmark.inputs.depth_counts import flop_per_frame
     from slamtpu_torch.cli.depth_estimation import depth_fn_for
     from slamtpu_torch.depth.monodepth2 import MonoDepth2
     from slamtpu_torch.feature.detector import OrbConfig
@@ -965,7 +948,7 @@ def depth_phase(torch, scene):
     models = {"f32": MonoDepth2(seed=0, device="cuda")}
     weights = dict(encoder=models["f32"].encoder.state_dict(), decoder=models["f32"].decoder.state_dict())
     models["bf16"] = MonoDepth2(**weights, compute_dtype=torch.bfloat16, device="cuda")
-    flop = conv_flop_per_frame(torch, models["f32"])
+    flop = flop_per_frame(models["f32"].height, models["f32"].width)
     peaks = {"f32": FP32_FLOP_PER_S, "bf16": BF16_FLOP_PER_S}
 
     out, timing = {}, {}

@@ -17,6 +17,15 @@ bf16 mode (`compute_dtype=torch.bfloat16`) runs a bf16 copy of the modules,
 every floating parameter and buffer cast (BatchNorm statistics included),
 on a bf16 input, and casts the disparity back to f32, as the JAX package
 does; autocast would keep BatchNorm in f32 and compute something else.
+
+Spans (utils/metrics.py; one flag test each with tracing off): every call
+of `predict_raw`, `predict` or `predict_colored` is one root span
+`depth.predict`, with `depth.upload` (the frames to the device),
+`depth.preprocess` (RGB expand, resize, scale, cast), `depth.encoder`,
+`depth.decoder`, and `depth.normalize` (`predict`) or `depth.colorize`
+(`predict_colored`'s fetch and host LUT work) inside it. The counter
+`depth.frames` counts the frames through the network a call, padding
+included.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from torch import nn
 from .. import resolve_device
 from ..models.depth_decoder import DepthDecoder
 from ..models.resnet import ResNet18Encoder
+from ..utils.metrics import count, span
 
 __all__ = ["MonoDepth2"]
 
@@ -107,71 +117,82 @@ class MonoDepth2:
             if compute_dtype is not None:
                 m.to(compute_dtype)  # floating parameters and buffers; num_batches_tracked stays int
 
-    # -- input plumbing ---------------------------------------------------
-    def _batchify(self, image):
-        """[H, W] / [H, W, 3] / [T, H, W] / [B, H, W, 3] -> ([B, H, W, 3]
-        f32 on the device, whether one image came in)."""
-        image = torch.as_tensor(image).to(self.device)
-        single = image.ndim == 2 or (image.ndim == 3 and image.shape[-1] == 3)
-        if image.ndim == 2:
-            image = image[..., None].expand(*image.shape, 3)
-        elif image.ndim == 3 and image.shape[-1] != 3:
-            image = image[..., None].expand(*image.shape, 3)  # [T, H, W] grayscale clip
-            single = False
-        if image.ndim == 3:
-            image = image[None]
-        return image.float(), single
-
+    # -- inference --------------------------------------------------------
     @torch.inference_mode()
-    def _forward(self, images: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] f32 in [0, 255] on the device -> [B, height, width]
-        f32 scale-0 disparity."""
-        # A channels-last view of the NHWC frames: from it cuDNN runs the
-        # f32 network faster on the H100 than from an NCHW copy, and bf16 as
-        # fast (tools/profile_torch_depth.py).
-        x = images.permute(0, 3, 1, 2)
-        if x.shape[-2:] != (self.height, self.width):
-            x = F.interpolate(x, size=(self.height, self.width), mode="bilinear", align_corners=False,
-                              antialias=True)
-        x = x / 255.0
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-        disp = self.decoder(self.encoder(x), scales=(0,))[0]
-        return disp[:, 0].float()
+    def _forward(self, image: torch.Tensor) -> torch.Tensor:
+        """Frames on the device in [0, 255] ([H, W] / [H, W, 3] / [T, H, W]
+        / [B, H, W, 3], any dtype) -> [B, height, width] f32 scale-0
+        disparity."""
+        with span("depth.preprocess"):
+            if image.ndim == 2 or (image.ndim == 3 and image.shape[-1] != 3):
+                image = image[..., None].expand(*image.shape, 3)  # grayscale frame or clip
+            if image.ndim == 3:
+                image = image[None]
+            # A channels-last view of the NHWC frames: from it cuDNN runs the
+            # f32 network faster on the H100 than from an NCHW copy, and bf16
+            # as fast (tools/profile_torch_depth.py).
+            x = image.float().permute(0, 3, 1, 2)
+            if x.shape[-2:] != (self.height, self.width):
+                x = F.interpolate(x, size=(self.height, self.width), mode="bilinear", align_corners=False,
+                                  antialias=True)
+            x = x / 255.0
+            if self.compute_dtype is not None:
+                x = x.to(self.compute_dtype)
+        count("depth.frames", x.shape[0])
+        with span("depth.encoder"):
+            features = self.encoder(x)
+        with span("depth.decoder"):
+            return self.decoder(features, scales=(0,))[0][:, 0].float()
+
+    def _raw(self, image) -> torch.Tensor:
+        """predict_raw inside the caller's span."""
+        with span("depth.upload"):
+            image = torch.as_tensor(image).to(self.device)
+        single = image.ndim == 2 or (image.ndim == 3 and image.shape[-1] == 3)
+        disp = self._forward(image)
+        return disp[0] if single else disp
 
     def predict_raw(self, image) -> torch.Tensor:
         """Sigmoid disparity in [0, 1], un-normalized. [B?, height, width]."""
-        batch, single = self._batchify(image)
-        disp = self._forward(batch)
-        return disp[0] if single else disp
+        with span("depth.predict", root=True):
+            return self._raw(image)
 
     def predict(self, image) -> torch.Tensor:
         """Min-max-normalized disparity, per image."""
-        disp = self.predict_raw(image)
-        lo = disp.amin(dim=(-2, -1), keepdim=True)
-        hi = disp.amax(dim=(-2, -1), keepdim=True)
-        return (disp - lo) / torch.clamp(hi - lo, min=1e-12)
+        with span("depth.predict", root=True):
+            disp = self._raw(image)
+            with span("depth.normalize"):
+                lo = disp.amin(dim=(-2, -1), keepdim=True)
+                hi = disp.amax(dim=(-2, -1), keepdim=True)
+                return (disp - lo) / torch.clamp(hi - lo, min=1e-12)
 
     def predict_colored(self, image) -> np.ndarray:
         """uint8 RGB magma visualization on the host: vmin = min, vmax = the
         sorted values at index floor(0.95 * count) (an index percentile),
         degenerate range -> 1.0, LUT index = trunc(normalized * 727)."""
-        disp = self.predict_raw(image).cpu().numpy()
-        batched = disp.ndim == 3
-        flat = disp.reshape(disp.shape[0] if batched else 1, -1)
-        vmin = flat.min(axis=-1)
-        srt = np.sort(flat, axis=-1)
-        p95_idx = min(int(flat.shape[-1] * 0.95), flat.shape[-1] - 1)
-        vmax = srt[:, p95_idx]
-        rng = vmax - vmin
-        rng = np.where(rng < 1e-8, 1.0, rng)
-        shape = (-1, 1, 1) if batched else (-1, 1)
-        if not batched:
-            vmin, rng = vmin[0], rng[0]
-        else:
-            vmin, rng = vmin.reshape(shape), rng.reshape(shape)
-        lut = _magma_lut()
-        n = lut.shape[0]
-        norm = np.clip((disp - vmin) / rng, 0.0, 1.0)
-        idx = np.clip((norm * (n - 1)).astype(np.int32), 0, n - 1)
-        return lut[idx]
+        with span("depth.predict", root=True):
+            disp = self._raw(image)
+            with span("depth.colorize"):
+                return _colorize(disp.cpu().numpy())
+
+
+def _colorize(disp: np.ndarray) -> np.ndarray:
+    """predict_colored's host work on a [B?, H, W] disparity."""
+    batched = disp.ndim == 3
+    flat = disp.reshape(disp.shape[0] if batched else 1, -1)
+    vmin = flat.min(axis=-1)
+    srt = np.sort(flat, axis=-1)
+    p95_idx = min(int(flat.shape[-1] * 0.95), flat.shape[-1] - 1)
+    vmax = srt[:, p95_idx]
+    rng = vmax - vmin
+    rng = np.where(rng < 1e-8, 1.0, rng)
+    shape = (-1, 1, 1) if batched else (-1, 1)
+    if not batched:
+        vmin, rng = vmin[0], rng[0]
+    else:
+        vmin, rng = vmin.reshape(shape), rng.reshape(shape)
+    lut = _magma_lut()
+    n = lut.shape[0]
+    norm = np.clip((disp - vmin) / rng, 0.0, 1.0)
+    idx = np.clip((norm * (n - 1)).astype(np.int32), 0, n - 1)
+    return lut[idx]

@@ -147,7 +147,7 @@ def test_predict_colored_byte_equal_to_jax(batched):
         predict_colored = JMonoDepth2.predict_colored
 
     class TStub:
-        predict_raw = lambda self, image: torch.from_numpy(disp)  # noqa: E731
+        _raw = lambda self, image: torch.from_numpy(disp)  # noqa: E731
         predict_colored = MonoDepth2.predict_colored
 
     got = TStub().predict_colored(None)

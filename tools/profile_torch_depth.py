@@ -34,24 +34,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-KINDS = (  # first match wins; kernel names lower-cased
-    ("layout", ("nchwtonhwc", "nhwctonchw", "transpose")),
-    ("resize", ("upsample",)),
-    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw")),
-    ("pad", ("reflection_pad",)),
-    ("max_pool", ("max_pool",)),
-    ("cat", ("catarray", "cat_")),
-    ("conv", ("conv", "cudnn", "xmma", "gemm", "cutlass", "implicit", "winograd", "fft", "sm90", "sm80")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-)
-
-
-def kind_of(name: str) -> str:
-    low = name.lower()
-    for kind, keys in KINDS:
-        if any(k in low for k in keys):
-            return kind
-    return "other"
+from benchmark.inputs.depth_counts import kind_of  # noqa: E402  (the benchmark's kernel classes)
 
 
 def main() -> int:
