@@ -1,0 +1,22 @@
+"""pose_graph_replay_share: of the pose stage's calls on the card under a
+request's root span (`pose.match`, `.hypotheses`, `.score`, `.polish`,
+`.recover`, each a region of `slamtpu_torch/utils/graphs.py`), the share
+that replayed a captured CUDA graph: the port's counters
+`pose.graph_replays` / (`pose.graph_replays` + `pose.graph_captures` +
+`pose.graph_eager`) over the window, in percent. A port without the
+counters reads nothing."""
+
+from benchmark import program_spans
+
+program_spans.begin()
+
+
+def read(ctx):
+    w = program_spans.window(ctx)
+    if w is None or ctx.device.type != "cuda":
+        return None
+    replays, captures, eager = (w.count(f"pose.graph_{k}", roots=program_spans.ROOTS)
+                                for k in ("replays", "captures", "eager"))
+    if not replays + captures + eager:
+        return None
+    return 100.0 * replays / (replays + captures + eager)

@@ -6,6 +6,7 @@ the eager one-pair API that raises where the batched path returns a flag.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -15,6 +16,8 @@ from .. import resolve_device
 from ..ops.epipolar import recover_pose_from_essential, sampson_error
 from ..ops.homography import ransac_homography, recover_pose_from_homography
 from ..ops.ransac import PairDraws, RansacConfig, RansacResult, as_draws, ransac_essential
+from ..utils import graphs
+from ..utils.graphs import device_constant
 from ..utils.metrics import span
 from .camera import CameraIntrinsics
 
@@ -61,39 +64,49 @@ def estimate_relative_pose(intrinsics: CameraIntrinsics, points1, points2, mask=
         mask = torch.ones(points1.shape[:-1], dtype=torch.bool, device=points1.device)
     norm1 = intrinsics.normalize(points1)
     norm2 = intrinsics.normalize(points2)
-    threshold_norm = config.threshold / torch.tensor(intrinsics.fx, dtype=norm1.dtype, device=norm1.device)
+    threshold_norm = config.threshold / device_constant(intrinsics.fx, norm1.dtype, norm1.device)
     result = ransac_essential(
         norm1, norm2, mask=mask, threshold_norm=threshold_norm, config=config, sigma=sigma,
         uniforms=draws, generator=generator,
     )
+    fallback = config.homography_fallback
     with span("pose.recover"):
-        rotation, translation, votes = recover_pose_from_essential(
-            result.essential, norm1, norm2, mask=result.inliers
-        )
-        # recoverPose's count: RANSAC inliers passing the winning candidate's
-        # cheirality test; the reference requires >= 8 of THOSE.
-        cheirality_inliers = torch.amax(votes, dim=-1)
-        num_inliers = result.num_inliers
-
-        if config.homography_fallback:
-            h, h_inliers, h_count = ransac_homography(
-                norm1, norm2, mask=mask, threshold_norm=threshold_norm, iters=config.homography_iters,
-                sigma=sigma, uniforms=draws.homography, generator=generator,
-            )
-            r_h, t_h, _ = recover_pose_from_homography(h, norm1, norm2, mask=h_inliers)
-            ratio = h_count.to(norm1.dtype) / torch.clamp((h_count + result.num_inliers).to(norm1.dtype), min=1.0)
-            use_h = ratio > config.homography_ratio
-            rotation = torch.where(use_h[..., None, None], r_h, rotation)
-            translation = torch.where(use_h[..., None], t_h, translation)
-            num_inliers = torch.where(use_h, h_count, num_inliers)
-            cheirality_inliers = torch.where(use_h, h_count, cheirality_inliers)
-
-        enough_input = torch.sum(mask, dim=-1) >= MIN_MATCHES
-        valid = enough_input & (cheirality_inliers >= MIN_MATCHES)
-        eye = torch.eye(3, dtype=rotation.dtype, device=rotation.device)
-        rotation = torch.where(valid[..., None, None], rotation, eye)
-        translation = torch.where(valid[..., None], translation, torch.zeros_like(translation))
+        rotation, translation, num_inliers, valid = graphs.run(
+            "pose.recover", functools.partial(_recover, config=config, generator=generator),
+            (result.essential, result.inliers, result.num_inliers, norm1, norm2, mask,
+             *((sigma, threshold_norm, draws.homography) if fallback else (None,) * 3)),
+            static=config, eager=fallback and draws.homography is None)
         return RelativePose(rotation, translation, num_inliers, valid, result.inliers)
+
+
+def _recover(essential, inliers, num_inliers, norm1, norm2, mask, sigma, threshold_norm, u_homography,
+             config: RansacConfig, generator=None):
+    """The `pose.recover` region: (R, t, inlier count, valid) of the
+    cheirality vote, or of the homography where it wins."""
+    rotation, translation, votes = recover_pose_from_essential(essential, norm1, norm2, mask=inliers)
+    # recoverPose's count: RANSAC inliers passing the winning candidate's
+    # cheirality test; the reference requires >= 8 of THOSE.
+    cheirality_inliers = torch.amax(votes, dim=-1)
+
+    if config.homography_fallback:
+        h, h_inliers, h_count = ransac_homography(
+            norm1, norm2, mask=mask, threshold_norm=threshold_norm, iters=config.homography_iters,
+            sigma=sigma, uniforms=u_homography, generator=generator,
+        )
+        r_h, t_h, _ = recover_pose_from_homography(h, norm1, norm2, mask=h_inliers)
+        ratio = h_count.to(norm1.dtype) / torch.clamp((h_count + num_inliers).to(norm1.dtype), min=1.0)
+        use_h = ratio > config.homography_ratio
+        rotation = torch.where(use_h[..., None, None], r_h, rotation)
+        translation = torch.where(use_h[..., None], t_h, translation)
+        num_inliers = torch.where(use_h, h_count, num_inliers)
+        cheirality_inliers = torch.where(use_h, h_count, cheirality_inliers)
+
+    enough_input = torch.sum(mask, dim=-1) >= MIN_MATCHES
+    valid = enough_input & (cheirality_inliers >= MIN_MATCHES)
+    eye = torch.eye(3, dtype=rotation.dtype, device=rotation.device)
+    rotation = torch.where(valid[..., None, None], rotation, eye)
+    translation = torch.where(valid[..., None], translation, torch.zeros_like(translation))
+    return rotation, translation, num_inliers, valid
 
 
 class PoseEstimator:

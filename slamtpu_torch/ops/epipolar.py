@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from ..utils.graphs import device_constant
+
 __all__ = [
     "sampson_parts",
     "sampson_error",
@@ -59,7 +61,7 @@ def _eig3_smallest(s: torch.Tensor) -> torch.Tensor:
     v = torch.gather(m, -1, col[..., None, None].expand(*m.shape[:-1], 1))[..., 0]
     vn = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     fallback = torch.zeros_like(v)
-    fallback[..., 0] = 1.0
+    fallback[..., 0].fill_(1.0)  # a fill kernel also where the slice is 0-d (a copy from the host there)
     return torch.where(vn > 1e-20, v / torch.clamp(vn, min=1e-30), fallback)
 
 
@@ -223,8 +225,7 @@ def decompose_essential(essential):
     u1, u2, u3, v1, v2, v3, _, _ = _essential_frames(essential)
     u = torch.stack([u1, u2, u3], dim=-1)
     vt = torch.stack([v1, v2, v3], dim=-2)
-    w = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=essential.dtype,
-                     device=essential.device)
+    w = device_constant(((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)), essential.dtype, essential.device)
     r1 = u @ w @ vt
     r2 = u @ w.T @ vt
     t = u3 / torch.clamp(torch.linalg.vector_norm(u3, dim=-1, keepdim=True), min=1e-18)

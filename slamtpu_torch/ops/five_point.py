@@ -28,6 +28,7 @@ import math
 import torch
 
 from .. import _build
+from ..utils.graphs import device_constant, host_effect
 from ..utils.metrics import count, span
 from .epipolar import _homogeneous
 
@@ -178,8 +179,8 @@ def _linspace(start: float, stop: float, num: int, dtype, device) -> torch.Tenso
     the grid is bit-identical to the JAX package's."""
     div = num - 1
     step = torch.arange(div, dtype=dtype, device=device) / div
-    start_t = torch.tensor(start, dtype=dtype, device=device)
-    stop_t = torch.tensor(stop, dtype=dtype, device=device)
+    start_t = device_constant(start, dtype, device)
+    stop_t = device_constant(stop, dtype, device)
     return torch.cat([start_t * (1 - step) + stop_t * step, stop_t[None]])
 
 
@@ -301,9 +302,13 @@ def _nullspace4(pts1, pts2):
                              torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"_nullspace4: kernel launch failed with CUDA error {err}")
-            _nullspace4.launches += 1
-            count("pose.nullspace_kernel")
+            host_effect(_count_launch)
         return basis
+
+
+def _count_launch():
+    _nullspace4.launches += 1
+    count("pose.nullspace_kernel")
 
 
 _nullspace4.launches = 0
@@ -315,7 +320,7 @@ def _solve_pivoted(a, b):
     n = a.shape[-1]
     aug = torch.cat([a, b], dim=-1)
     used = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=a.dtype, device=a.device)
+    neg_inf = device_constant(float("-inf"), a.dtype, a.device)
     for k in range(n):
         col = aug[..., :, k]
         p = torch.argmax(torch.where(used, neg_inf, col.abs()), dim=-1)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.graphs import device_constant
+
 __all__ = ["unpack_bits", "pack_bits", "descriptor_bits", "hamming_matrix", "hamming_matrix_from_bits",
            "hamming_matrix_popcount", "match_best", "match_top2"]
 
@@ -28,7 +30,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     if n % 8:
         raise ValueError("bit count must be a multiple of 8")
     grouped = bits.to(torch.int32).reshape(*bits.shape[:-1], n // 8, 8)
-    weights = torch.tensor([1 << i for i in range(8)], dtype=torch.int32, device=bits.device)
+    weights = device_constant(tuple(1 << i for i in range(8)), torch.int32, bits.device)
     return torch.sum(grouped * weights, dim=-1).to(torch.uint8)
 
 
@@ -55,13 +57,13 @@ def hamming_matrix(query_packed, train_packed) -> torch.Tensor:
     return hamming_matrix_from_bits(q_bits, q_pop, t_bits, t_pop)
 
 
-_POPCOUNT8 = [bin(i).count("1") for i in range(256)]
+_POPCOUNT8 = tuple(bin(i).count("1") for i in range(256))
 
 
 def hamming_matrix_popcount(query_packed, train_packed) -> torch.Tensor:
     """Reference path: XOR of the packed bytes and a popcount table,
     [N, B] x [M, B] uint8 -> [N, M] int32."""
-    table = torch.tensor(_POPCOUNT8, dtype=torch.int32, device=query_packed.device)
+    table = device_constant(_POPCOUNT8, torch.int32, query_packed.device)
     xored = torch.bitwise_xor(query_packed[:, None, :], train_packed[None, :, :])
     return torch.sum(table[xored.to(torch.int64)], dim=-1, dtype=torch.int32)
 

@@ -13,11 +13,13 @@ same numbers to both; otherwise they come from a seeded CPU
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..utils import graphs
 from ..utils.metrics import span
 from .epipolar import enforce_rank2, eight_point, sampson_error, sampson_parts
 from .five_point import _topk_first, five_point_candidates
@@ -177,6 +179,98 @@ def _gn_step(e, pts1, pts2, w):
     return so3_exp(delta[..., :3]) @ e @ so3_exp(delta[..., 3:]).transpose(-1, -2)
 
 
+def _hypotheses(pts1, pts2, mask, thresh_sq, inv_sigma, u_essential, u_prescore, config: RansacConfig,
+                generator=None):
+    """The `pose.hypotheses` region: (hypotheses [..., H, 3, 3], their
+    validity [..., H], None from the 8-point solver)."""
+    batch, n = pts1.shape[:-2], pts1.shape[-2]
+    device = pts1.device
+    sample_size = 5 if config.min_solver == "5pt" else config.sample_size
+    uniforms = u_essential
+    if uniforms is None:
+        uniforms = torch.rand(batch + (config.iters, n), generator=generator, device=device)
+    u = uniforms.to(torch.float32)
+    if inv_sigma is not None:
+        wgt = (inv_sigma * inv_sigma).to(torch.float32)
+        u = torch.exp(torch.log(torch.clamp(u, min=1e-30)) / wgt[..., None, :])
+    u = torch.where(mask[..., None, :], u, torch.full_like(u, float("-inf")))
+    sample_idx = _topk_first(u, sample_size)  # [..., iters, S]
+    s1 = _gather_rows(pts1, sample_idx)
+    s2 = _gather_rows(pts2, sample_idx)
+
+    if config.min_solver != "5pt":
+        return eight_point(s1, s2, method=config.solver), None
+    cands, cand_valid = five_point_candidates(s1, s2)  # [..., iters, R, 3, 3]
+    n_sub = config.prescore_subset
+    if not 0 < n_sub < n:
+        return cands.reshape(*batch, -1, 3, 3), cand_valid.reshape(*batch, -1)
+    # Stage 1: every root slot on a subset of the live rows; each hypothesis
+    # keeps its best slot.
+    u_sub = u_prescore
+    if u_sub is None:
+        u_sub = torch.rand(batch + (n,), generator=generator, device=device)
+    u_sub = u_sub.to(torch.float32)
+    u_sub = torch.where(mask, u_sub, torch.full_like(u_sub, float("-inf")))
+    sub_idx = _topk_first(u_sub, n_sub)  # [..., M]
+    sub1, sub2 = _gather_rows(pts1, sub_idx), _gather_rows(pts2, sub_idx)
+    sub_thresh = torch.gather(thresh_sq, -1, sub_idx)[..., None, None, :] if thresh_sq.dim() else thresh_sq
+    sub_mask = torch.gather(mask, -1, sub_idx)[..., None, None, :]
+    sub_err = sampson_error(cands, sub1[..., None, None, :, :], sub2[..., None, None, :, :])
+    sub_counts = torch.sum((sub_err < sub_thresh) & sub_mask, dim=-1, dtype=torch.int32)
+    sub_counts = torch.where(cand_valid, sub_counts, torch.full_like(sub_counts, -1))
+    best_slot = torch.argmax(sub_counts, dim=-1)  # [..., iters]
+    hyps = torch.gather(cands, -3, best_slot[..., None, None, None].expand(*best_slot.shape, 1, 3, 3))[..., 0, :, :]
+    return hyps, torch.gather(cand_valid, -1, best_slot[..., None])[..., 0]
+
+
+def _score(hyps, hyp_valid, pts1, pts2, mask, thresh_sq):
+    """The `pose.score` region: (the winning hypothesis [..., 3, 3], its
+    inlier count [...] int32)."""
+    batch = pts1.shape[:-2]
+    thresh_row = thresh_sq[..., None, :] if thresh_sq.dim() else thresh_sq
+    p1, p2 = pts1[..., None, :, :], pts2[..., None, :, :]
+    inlier_mat = (sampson_error(hyps, p1, p2) < thresh_row) & mask[..., None, :]
+    counts = torch.sum(inlier_mat, dim=-1, dtype=torch.int32)
+    if hyp_valid is not None:
+        counts = torch.where(hyp_valid, counts, torch.full_like(counts, -1))
+    best = torch.argmax(counts, dim=-1)  # first maximum, like jnp.argmax
+    best_count = torch.gather(counts, -1, best[..., None])[..., 0]
+    best_e = torch.gather(hyps, -3, best[..., None, None, None].expand(*batch, 1, 3, 3))[..., 0, :, :]
+    return best_e, best_count
+
+
+def _polish(best_e, pts1, pts2, mask, thresh_sq, inv_sigma, config: RansacConfig):
+    """The `pose.polish` region: (E [..., 3, 3], inliers [..., N], their
+    count [...] int32) after the refit rounds."""
+    batch, dtype, device = pts1.shape[:-2], pts1.dtype, pts1.device
+    mask_f = mask.to(dtype)
+
+    def inliers_of(e):
+        return (sampson_error(e, pts1, pts2) < thresh_sq) & mask
+
+    e = enforce_rank2(best_e)
+    inl = inliers_of(e)
+    rounds = 0 if config.refit_method == "none" else config.refine_rounds
+    for _ in range(rounds):
+        w = inl.to(dtype) * mask_f
+        if inv_sigma is not None:
+            w = w * inv_sigma
+        if config.refit_method == "gn":
+            e_new = _gn_step(e, pts1, pts2, w)
+            better = torch.ones(batch, dtype=torch.bool, device=device)
+        else:
+            # Rows weighted by the Sampson rsqrt(denominator); an 8-point
+            # refit needs >= sample_size inliers, else the model is kept.
+            w = w * torch.rsqrt(torch.clamp(sampson_parts(e, pts1, pts2)[1], min=1e-18))
+            e_new = enforce_rank2(eight_point(pts1, pts2, weights=w, method=config.solver))
+            better = torch.sum(inl, dim=-1) >= config.sample_size
+        inl_new = inliers_of(e_new)
+        better = better & (torch.sum(inl_new, dim=-1) >= torch.sum(inl, dim=-1))
+        e = torch.where(better[..., None, None], e_new, e)
+        inl = torch.where(better[..., None], inl_new, inl)
+    return e, inl, torch.sum(inl, dim=-1, dtype=torch.int32)
+
+
 def ransac_essential(pts1, pts2, mask=None, threshold_norm=1.0 / 700.0, config=RansacConfig(),
                      sigma=None, uniforms=None, generator=None) -> RansacResult:
     """RANSAC essential-matrix fit on normalized correspondences.
@@ -200,98 +294,29 @@ def ransac_essential(pts1, pts2, mask=None, threshold_norm=1.0 / 700.0, config=R
     dtype, device = pts1.dtype, pts1.device
     if mask is None:
         mask = torch.ones(batch + (n,), dtype=torch.bool, device=device)
-    mask_f = mask.to(dtype)
-    thresh = torch.as_tensor(threshold_norm, dtype=dtype, device=device)
+    if torch.is_tensor(threshold_norm):
+        thresh = threshold_norm.to(dtype=dtype, device=device)
+    else:
+        thresh = torch.full((), threshold_norm, dtype=dtype, device=device)
     thresh_sq = thresh * thresh
     inv_sigma = None
     if sigma is not None:
         sigma = sigma.to(dtype)
         thresh_sq = thresh_sq * (sigma * sigma)  # [..., N]
         inv_sigma = 1.0 / torch.clamp(sigma, min=1e-6)
-    thresh_row = thresh_sq[..., None, :] if thresh_sq.dim() else thresh_sq
 
+    # Each region below is a CUDA graph once its shapes recur
+    # (utils/graphs.py), unless it draws from `generator`.
+    prescore = config.min_solver == "5pt" and 0 < config.prescore_subset < n
     with span("pose.hypotheses"):
-        sample_size = 5 if config.min_solver == "5pt" else config.sample_size
-        uniforms = draws.essential
-        if uniforms is None:
-            uniforms = torch.rand(batch + (config.iters, n), generator=generator, device=device)
-        u = uniforms.to(torch.float32)
-        if inv_sigma is not None:
-            wgt = (inv_sigma * inv_sigma).to(torch.float32)
-            u = torch.exp(torch.log(torch.clamp(u, min=1e-30)) / wgt[..., None, :])
-        u = torch.where(mask[..., None, :], u, torch.full_like(u, float("-inf")))
-        sample_idx = _topk_first(u, sample_size)  # [..., iters, S]
-        s1 = _gather_rows(pts1, sample_idx)
-        s2 = _gather_rows(pts2, sample_idx)
-
-        hyp_valid = None
-        if config.min_solver == "5pt":
-            cands, cand_valid = five_point_candidates(s1, s2)  # [..., iters, R, 3, 3]
-            n_sub = config.prescore_subset
-            if 0 < n_sub < n:
-                # Stage 1: every root slot on a subset of the live rows; each
-                # hypothesis keeps its best slot.
-                u_sub = draws.prescore
-                if u_sub is None:
-                    u_sub = torch.rand(batch + (n,), generator=generator, device=device)
-                u_sub = u_sub.to(torch.float32)
-                u_sub = torch.where(mask, u_sub, torch.full_like(u_sub, float("-inf")))
-                sub_idx = _topk_first(u_sub, n_sub)  # [..., M]
-                sub1, sub2 = _gather_rows(pts1, sub_idx), _gather_rows(pts2, sub_idx)
-                sub_thresh = (torch.gather(thresh_sq, -1, sub_idx)[..., None, None, :] if thresh_sq.dim()
-                              else thresh_sq)
-                sub_mask = torch.gather(mask, -1, sub_idx)[..., None, None, :]
-                sub_err = sampson_error(cands, sub1[..., None, None, :, :], sub2[..., None, None, :, :])
-                sub_counts = torch.sum((sub_err < sub_thresh) & sub_mask, dim=-1, dtype=torch.int32)
-                sub_counts = torch.where(cand_valid, sub_counts, torch.full_like(sub_counts, -1))
-                best_slot = torch.argmax(sub_counts, dim=-1)  # [..., iters]
-                hyps = torch.gather(cands, -3, best_slot[..., None, None, None].expand(*best_slot.shape, 1, 3, 3))[
-                    ..., 0, :, :]
-                hyp_valid = torch.gather(cand_valid, -1, best_slot[..., None])[..., 0]
-            else:
-                hyps = cands.reshape(*batch, -1, 3, 3)
-                hyp_valid = cand_valid.reshape(*batch, -1)
-        else:
-            hyps = eight_point(s1, s2, method=config.solver)
-
+        hyps, hyp_valid = graphs.run(
+            "pose.hypotheses", functools.partial(_hypotheses, config=config, generator=generator),
+            (pts1, pts2, mask, thresh_sq if prescore else None, inv_sigma, draws.essential,
+             draws.prescore if prescore else None),
+            static=config, eager=draws.essential is None or (prescore and draws.prescore is None))
     with span("pose.score"):
-        p1, p2 = pts1[..., None, :, :], pts2[..., None, :, :]
-        inlier_mat = (sampson_error(hyps, p1, p2) < thresh_row) & mask[..., None, :]
-        counts = torch.sum(inlier_mat, dim=-1, dtype=torch.int32)
-        if hyp_valid is not None:
-            counts = torch.where(hyp_valid, counts, torch.full_like(counts, -1))
-        best = torch.argmax(counts, dim=-1)  # first maximum, like jnp.argmax
-        best_count = torch.gather(counts, -1, best[..., None])[..., 0]
-        best_e = torch.gather(hyps, -3, best[..., None, None, None].expand(*batch, 1, 3, 3))[..., 0, :, :]
-
-    def inliers_of(e):
-        return (sampson_error(e, pts1, pts2) < thresh_sq) & mask
-
+        best_e, best_count = graphs.run("pose.score", _score, (hyps, hyp_valid, pts1, pts2, mask, thresh_sq))
     with span("pose.polish"):
-        e = enforce_rank2(best_e)
-        inl = inliers_of(e)
-        rounds = 0 if config.refit_method == "none" else config.refine_rounds
-        for _ in range(rounds):
-            w = inl.to(dtype) * mask_f
-            if inv_sigma is not None:
-                w = w * inv_sigma
-            if config.refit_method == "gn":
-                e_new = _gn_step(e, pts1, pts2, w)
-                better = torch.ones(batch, dtype=torch.bool, device=device)
-            else:
-                # Rows weighted by the Sampson rsqrt(denominator); an 8-point
-                # refit needs >= sample_size inliers, else the model is kept.
-                w = w * torch.rsqrt(torch.clamp(sampson_parts(e, pts1, pts2)[1], min=1e-18))
-                e_new = enforce_rank2(eight_point(pts1, pts2, weights=w, method=config.solver))
-                better = torch.sum(inl, dim=-1) >= config.sample_size
-            inl_new = inliers_of(e_new)
-            better = better & (torch.sum(inl_new, dim=-1) >= torch.sum(inl, dim=-1))
-            e = torch.where(better[..., None, None], e_new, e)
-            inl = torch.where(better[..., None], inl_new, inl)
-
-        return RansacResult(
-            essential=e,
-            inliers=inl,
-            num_inliers=torch.sum(inl, dim=-1, dtype=torch.int32),
-            best_iter_inliers=best_count,
-        )
+        e, inl, num_inliers = graphs.run("pose.polish", functools.partial(_polish, config=config),
+                                         (best_e, pts1, pts2, mask, thresh_sq, inv_sigma), static=config)
+        return RansacResult(essential=e, inliers=inl, num_inliers=num_inliers, best_iter_inliers=best_count)

@@ -31,6 +31,7 @@ With `refine_matches` each chunk also needs the frame before it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -47,6 +48,8 @@ from ..ops.hamming import descriptor_bits
 from ..ops.lie import se3_matrix
 from ..ops.patch_refine import refine_matches
 from ..ops.ransac import PairDraws, RansacConfig, as_draws, pair_draws
+from ..utils import graphs
+from ..utils.graphs import device_constant
 from ..utils.metrics import span
 
 __all__ = ["VoConfig", "VoChunkResult", "VoRun", "seed_features", "vo_frontend", "vo_chunk", "vo_chunk_batched",
@@ -123,52 +126,72 @@ def _detect(frames, config: VoConfig) -> OrbFeatures:
         return OrbFeatures(*[x.reshape(b, c, *x.shape[1:]) for x in feats])
 
 
-def _pair_poses(prev_feats: OrbFeatures, feats_new: OrbFeatures, frames, intrinsics: CameraIntrinsics,
-                config: VoConfig, step_mask, draws: PairDraws, prev_frame):
-    """The pose part of the chunk step: each frame of feats_new [B, C, ...]
-    against the one before it (prev_feats [B, ...] before the first),
-    matching, sub-pixel refinement, per-octave sigma and RANSAC of all B*C
-    pairs as one batch. Returns (rotation [B, C, 3, 3], translation [B, C, 3],
-    num_good, num_inliers, success, all [B, C])."""
-    device = frames.device
-    b, c = frames.shape[:2]
+def _match(descriptors, mask, xy, octave, imgs, config: VoConfig):
+    """The `pose.match` region over the frames [B, C+1, ...] of C pairs:
+    (points1, points2 [B*C, K, 2], good [B*C, K], sigma [B*C, K],
+    num_good, enough [B*C])."""
+    b, c = descriptors.shape[0], descriptors.shape[1] - 1
 
     def pairs(x, first: bool):
         """[B, C+1, ...] -> the pairs' first (or second) frames as [B*C, ...]."""
         x = x[:, :-1] if first else x[:, 1:]
         return x.reshape(b * c, *x.shape[2:])
 
+    # Unpack descriptor bits once per frame (each frame is in two pairs).
+    bits, pops = descriptor_bits(descriptors)
+    matcher = FeatureMatcher()
+    good = matcher.filter_good_matches(
+        matcher.match_from_bits(pairs(bits, True), pairs(pops, True), pairs(mask, True),
+                                pairs(bits, False), pairs(pops, False), pairs(mask, False)),
+        config.match_ratio,
+    )
+    pts1 = pairs(xy, True)
+    pts2 = torch.gather(pairs(xy, False), 1, good.train_idx[..., None].expand(-1, -1, 2))
+    num_good = torch.sum(good.mask, dim=-1, dtype=torch.int32)
+    enough = num_good >= config.min_matches
+
+    if imgs is not None:
+        pts2 = refine_matches(pairs(imgs, True), pairs(imgs, False), pts1, pts2, good.mask,
+                              radius=config.refine_radius, search=config.refine_search)
+
+    if octave is not None:
+        oct1 = pairs(octave, True)
+        oct2 = torch.gather(pairs(octave, False), 1, good.train_idx)
+        base = device_constant(config.orb.scale_factor, pts1.dtype, pts1.device)
+        sigma = torch.pow(base, torch.maximum(oct1, oct2).to(pts1.dtype))
+    else:
+        sigma = torch.ones_like(pts1[..., 0])
+    return pts1, pts2, good.mask, sigma, num_good, enough
+
+
+def _pair_poses(prev_feats: OrbFeatures, feats_new: OrbFeatures, frames, intrinsics: CameraIntrinsics,
+                config: VoConfig, step_mask, draws: PairDraws, prev_frame):
+    """The pose part of the chunk step: each frame of feats_new [B, C, ...]
+    against the one before it (prev_feats [B, ...] before the first),
+    matching, sub-pixel refinement, per-octave sigma and RANSAC of all B*C
+    pairs as one batch. Returns (rotation [B, C, 3, 3], translation [B, C, 3],
+    num_good, num_inliers, success, all [B, C]). On the card each region
+    replays a CUDA graph once its shapes recur (utils/graphs.py); the
+    masked seed step and `enough` are applied outside, so the first chunk
+    shares the graphs of the others."""
+    device = frames.device
+    b, c = frames.shape[:2]
+
     with span("vo.pose"):
         with span("pose.match"):
-            feats_all = OrbFeatures(*[torch.cat([p[:, None], f], dim=1) for p, f in zip(prev_feats, feats_new)])
-            # Unpack descriptor bits once per frame (each frame is in two pairs).
-            bits, pops = descriptor_bits(feats_all.descriptors)
-            matcher = FeatureMatcher()
-            good = matcher.filter_good_matches(
-                matcher.match_from_bits(pairs(bits, True), pairs(pops, True), pairs(feats_all.mask, True),
-                                        pairs(bits, False), pairs(pops, False), pairs(feats_all.mask, False)),
-                config.match_ratio,
-            )
-            pts1 = pairs(feats_all.xy, True)
-            pts2 = torch.gather(pairs(feats_all.xy, False), 1, good.train_idx[..., None].expand(-1, -1, 2))
-            num_good = torch.sum(good.mask, dim=-1, dtype=torch.int32)
-            enough = num_good >= config.min_matches
-
+            cat = lambda p, f: torch.cat([p[:, None], f], dim=1)  # noqa: E731
+            imgs = None
             if config.refine_matches and prev_frame is not None:
-                imgs = torch.cat([torch.as_tensor(prev_frame, device=device)[:, None], frames], dim=1)
-                pts2 = refine_matches(pairs(imgs, True), pairs(imgs, False), pts1, pts2, good.mask,
-                                      radius=config.refine_radius, search=config.refine_search)
-
-            if config.ransac.octave_sigma:
-                oct1 = pairs(feats_all.octave, True)
-                oct2 = torch.gather(pairs(feats_all.octave, False), 1, good.train_idx)
-                base = torch.tensor(config.orb.scale_factor, dtype=pts1.dtype, device=device)
-                sigma = torch.pow(base, torch.maximum(oct1, oct2).to(pts1.dtype))
-            else:
-                sigma = torch.ones_like(pts1[..., 0])
+                imgs = cat(torch.as_tensor(prev_frame, device=device), frames)
+            pts1, pts2, good, sigma, num_good, enough = graphs.run(
+                "pose.match", functools.partial(_match, config=config),
+                (cat(prev_feats.descriptors, feats_new.descriptors), cat(prev_feats.mask, feats_new.mask),
+                 cat(prev_feats.xy, feats_new.xy),
+                 cat(prev_feats.octave, feats_new.octave) if config.ransac.octave_sigma else None, imgs),
+                static=config)
 
         flat_draws = PairDraws(*[None if d is None else d.reshape(b * c, *d.shape[2:]) for d in draws])
-        poses = estimate_relative_pose(intrinsics, pts1, pts2, mask=good.mask, config=config.ransac,
+        poses = estimate_relative_pose(intrinsics, pts1, pts2, mask=good, config=config.ransac,
                                        sigma=sigma, uniforms=flat_draws)
         success = (poses.valid & enough).reshape(b, c)
         if step_mask is not None:
