@@ -130,7 +130,7 @@ class MonoDepth2:
                 image = image[None]
             # A channels-last view of the NHWC frames: from it cuDNN runs the
             # f32 network faster on the H100 than from an NCHW copy, and bf16
-            # as fast (tools/profile_torch_depth.py).
+            # as fast (an A/B of the two layouts; the depth-b64 cell times this path).
             x = image.float().permute(0, 3, 1, 2)
             if x.shape[-2:] != (self.height, self.width):
                 x = F.interpolate(x, size=(self.height, self.width), mode="bilinear", align_corners=False,

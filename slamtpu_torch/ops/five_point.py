@@ -29,7 +29,7 @@ import torch
 
 from .. import _build
 from ..utils.graphs import device_constant, host_effect
-from ..utils.metrics import count, span
+from ..utils.metrics import span
 from .epipolar import _homogeneous
 
 __all__ = ["N_ROOT_SLOTS", "five_point_candidates"]
@@ -308,7 +308,6 @@ def _nullspace4(pts1, pts2):
 
 def _count_launch():
     _nullspace4.launches += 1
-    count("pose.nullspace_kernel")
 
 
 _nullspace4.launches = 0

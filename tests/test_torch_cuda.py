@@ -1,8 +1,14 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on
-the card. Marked `cuda`: each test skips on a host without a CUDA device
-(the decision is made inside the fixture, never at import). On the GPU:
-`python -m pytest -m cuda tests/test_torch_cuda.py`. chip_smoke.py holds
-the same kernels at the VO chunk's full shapes."""
+"""The port on the card: the hand-written CUDA kernels against their plain
+PyTorch versions (also at the VO cells' full chunk shapes), one launch of
+each kernel a chunk on every main path, and the pipelines against the CPU,
+ground truth and their own bars. Marked `cuda`: each test skips on a host
+without a CUDA device (the decision is made inside the fixture, never at
+import). No JAX here, so on the GPU
+`python -m pytest --noconftest -m cuda tests/test_torch_cuda.py` runs them."""
+
+import dataclasses
+import gc
+import os
 
 import numpy as np
 import pytest
@@ -68,15 +74,49 @@ def test_patch_kernel_matches_plain(cuda):
     torch.testing.assert_close(out, extract_patches_plain(imgs, starts, PATCH_RADIUS), rtol=0, atol=0)
 
 
-def test_corner_levels_kernel_matches_plain(cuda):
+def _clip():
+    """The 257-frame 1241x376 clip of the VO cells' size (KITTI intrinsics,
+    4000 landmarks, step 0.8, seed 0, noise 2.0), rendered once into
+    .scene_cache."""
+    from slamtpu_torch.io.synthetic import render_sequence_cached
+    from slamtpu_torch.odometry.camera import CameraIntrinsics
+
+    return render_sequence_cached(n_frames=257, height=376, width=1241, n_points=4000, step=0.8,
+                                  intrinsics=CameraIntrinsics.kitti(), seed=0, noise=2.0)
+
+
+def _vo_chunk(cuda):
+    """The clip's first 32-frame chunk as the detector sees it: the 8-level
+    pyramid, the levels that take the Harris map, the starts of the windows
+    it selects on each level (from the plain corner maps) and the blurred
+    levels."""
+    from slamtpu_torch.feature.detector import OrbConfig, _select_level, features_per_level
+    from slamtpu_torch.ops.pyramid import build_pyramid, gaussian_blur
+
+    cfg = OrbConfig()
+    chunk = torch.as_tensor(_clip().frames[:32]).to(cuda).float()
+    levels = [x.contiguous() for x in build_pyramid(chunk, cfg.n_levels, cfg.scale_factor)]
+    flags = [lv <= cfg.subpixel_max_octave for lv in range(cfg.n_levels)]
+    ranked, harris = corner_response_levels_plain(levels, cfg.fast_threshold, flags)
+    quotas = features_per_level(cfg.max_features, cfg.n_levels, cfg.scale_factor)
+    starts = [(torch.round(_select_level(r, q, cfg.edge_threshold, h)[0]).to(torch.int32) - PATCH_RADIUS).contiguous()
+              for r, q, h in zip(ranked, quotas, harris)]
+    return levels, flags, starts, [gaussian_blur(x) for x in levels]
+
+
+@pytest.mark.parametrize("case", ["odd_levels", "vo_chunk"])
+def test_corner_levels_kernel_matches_plain(cuda, case):
     """One launch over levels of odd widths, a tiny last level and a flat
-    one: corner sets identical everywhere, Harris bit-identical at least
-    4 px from the border (the kernel clamps its halo where the plain
-    version wraps)."""
-    levels = [_images(3, 2, 97, 203), _images(4, 2, 40, 59), _images(5, 2, 33, 131),
-              torch.zeros((2, 64, 70)), _images(6, 2, 5, 9)]
-    levels = [x.to(cuda).contiguous() for x in levels]
-    flags = [True, False, True, False, True]
+    one, or over a VO chunk's 8-level pyramid of 32 x 1241 x 376: corner
+    sets identical everywhere, Harris bit-identical at least 4 px from the
+    border (the kernel clamps its halo where the plain version wraps)."""
+    if case == "odd_levels":
+        levels = [_images(3, 2, 97, 203), _images(4, 2, 40, 59), _images(5, 2, 33, 131),
+                  torch.zeros((2, 64, 70)), _images(6, 2, 5, 9)]
+        levels = [x.to(cuda).contiguous() for x in levels]
+        flags = [True, False, True, False, True]
+    else:
+        levels, flags = _vo_chunk(cuda)[:2]
     before = corner_response.launches
     ranked, harris = corner_response_levels(levels, 20.0, flags)
     assert corner_response.launches == before + 1
@@ -93,30 +133,44 @@ def test_corner_levels_kernel_matches_plain(cuda):
         single = corner_response(levels[lv], 20.0, with_harris=flags[lv])
         assert torch.equal(single[0] if flags[lv] else single, rk), lv
     assert int(torch.isfinite(ranked[0]).sum()) > 100
-    assert not torch.isfinite(ranked[3]).any() and not torch.isfinite(ranked[4]).any()
+    if case == "odd_levels":
+        assert not torch.isfinite(ranked[3]).any() and not torch.isfinite(ranked[4]).any()
 
 
-def test_patch_levels_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("case", ["edge_starts", "vo_chunk", "vo_chunk_raw_and_blurred"])
+def test_patch_levels_kernel_matches_plain(cuda, case):
     """One launch over levels with K_l not a multiple of 4, a level without
-    an image (zero windows), and starts on and beyond every border."""
-    levels = [_images(7, 3, 90, 261), None, _images(8, 3, 45, 77), _images(9, 3, 39, 39)]
-    levels = [None if x is None else x.to(cuda).contiguous() for x in levels]
-    rng = np.random.default_rng(10)
-    starts = []
-    for img, k in zip(levels, (13, 3, 6, 5)):
-        h, w = (50, 50) if img is None else img.shape[1:]
-        s = np.stack([rng.integers(-40, w + 5, (3, k)), rng.integers(-40, h + 5, (3, k))], -1)
-        s[:, 0], s[:, 1], s[:, 2] = (0, 0), (w - 39, h - 39), (-7, h)
-        s[:, -1] = (w, -3)
-        starts.append(torch.from_numpy(s.astype(np.int32)).to(cuda))
+    an image (zero windows), and starts on and beyond every border; or over
+    the windows the detector selects on a VO chunk's 8 blurred levels of
+    32 x 1241 x 376, alone or with the raw levels' windows in the same
+    16-level launch (descriptor_bins=0). Bit-exact."""
+    if case == "edge_starts":
+        levels = [_images(7, 3, 90, 261), None, _images(8, 3, 45, 77), _images(9, 3, 39, 39)]
+        levels = [None if x is None else x.to(cuda).contiguous() for x in levels]
+        rng = np.random.default_rng(10)
+        starts = []
+        for img, k in zip(levels, (13, 3, 6, 5)):
+            h, w = (50, 50) if img is None else img.shape[1:]
+            s = np.stack([rng.integers(-40, w + 5, (3, k)), rng.integers(-40, h + 5, (3, k))], -1)
+            s[:, 0], s[:, 1], s[:, 2] = (0, 0), (w - 39, h - 39), (-7, h)
+            s[:, -1] = (w, -3)
+            starts.append(torch.from_numpy(s.astype(np.int32)).to(cuda))
+    else:
+        raw, _, starts, levels = _vo_chunk(cuda)
+        if case == "vo_chunk_raw_and_blurred":
+            levels, starts = raw + levels, starts + starts
     before = extract_patches_batched.launches
     out = extract_patches_levels(levels, starts, PATCH_RADIUS)
     assert extract_patches_batched.launches == before + 1
-    assert out.shape == (3, 27, 39, 39)
     assert torch.equal(out, extract_patches_levels_plain(levels, starts, PATCH_RADIUS))
-    assert torch.equal(out[:, 13:16], torch.zeros_like(out[:, 13:16]))
-    small = extract_patches_levels(levels[2:], starts[2:], 3)
-    assert torch.equal(small, extract_patches_levels_plain(levels[2:], starts[2:], 3))
+    if case == "edge_starts":
+        assert out.shape == (3, 27, 39, 39)
+        assert torch.equal(out[:, 13:16], torch.zeros_like(out[:, 13:16]))
+        small = extract_patches_levels(levels[2:], starts[2:], 3)
+        assert torch.equal(small, extract_patches_levels_plain(levels[2:], starts[2:], 3))
+    else:  # the per-level entry point launches the same kernel on one level
+        for img, st in zip(levels, starts):
+            assert torch.equal(extract_patches_batched(img, st, PATCH_RADIUS), extract_patches_plain(img, st, PATCH_RADIUS))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -141,7 +195,8 @@ def _nearby_views(shape, seed):
     return tuple(torch.from_numpy(v.astype(np.float32)) for v in (x, x + rng.normal(0.0, 0.007, x.shape)))
 
 
-@pytest.mark.parametrize("shape,views", [((32, 64), "uniform"), ((4, 32, 64), "uniform"), ((4, 32, 64), "nearby")])
+@pytest.mark.parametrize("shape,views", [((32, 64), "uniform"), ((4, 32, 64), "uniform"), ((4, 32, 64), "nearby"),
+                                         ((32, 64), "nearby")])
 def test_nullspace_kernel_is_the_library_qr_to_the_bit(cuda, shape, views):
     """At the VO chunks' shapes: Q's last four columns exactly as the
     library's complete QR of A^T gives them on the card, also where A is
@@ -203,7 +258,7 @@ def test_nullspace_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 def test_nullspace_kernel_counter_counts_the_chunks_of_run_vo(cuda):
     """Traced run_vo on the card: the main path's null space went through
-    the kernel once a chunk, as the `pose.nullspace_kernel` counter says."""
+    the kernel once a chunk, as `_nullspace4.launches` counts."""
     from slamtpu_torch.pipeline.vo import run_vo
     from slamtpu_torch.utils import metrics
 
@@ -211,11 +266,8 @@ def test_nullspace_kernel_counter_counts_the_chunks_of_run_vo(cuda):
     before = five_point._nullspace4.launches
     with metrics.tracing():
         run_vo(scene.frames, scene.intrinsics, cfg, chunk_size=4, seed=2, device=cuda)
-    rec = metrics.records()
-    chunks = sum(s.name == "vo.chunk" for s in rec.spans)
-    counted = sum(n for (name, _), n in rec.counts.items() if name == "pose.nullspace_kernel")
-    assert chunks == -(-len(scene.frames) // 4)
-    assert counted == chunks == five_point._nullspace4.launches - before
+    chunks = sum(s.name == "vo.chunk" for s in metrics.records().spans)
+    assert chunks == -(-len(scene.frames) // 4) == five_point._nullspace4.launches - before
 
 
 def _ba_problem(seed, n_poses, n_points, dtype):
@@ -284,7 +336,7 @@ def _small_flagship():
 
 def _flagship_cuda_matches_cpu(runner, cuda):
     """A small flagship run on the card against the CPU with the same
-    draws; two card runs identical."""
+    draws; two card runs identical. Returns (scene, the card's result)."""
     scene, cfg = _small_flagship()
     draws = torch.rand((16, 16, 96), generator=torch.Generator().manual_seed(0))
     cpu = runner(scene.frames, scene.intrinsics, cfg, chunk_size=8, device="cpu", uniforms=draws)
@@ -299,14 +351,18 @@ def _flagship_cuda_matches_cpu(runner, cuda):
     again = runner(scene.frames, scene.intrinsics, cfg, chunk_size=8, device=cuda, uniforms=draws.to(cuda))
     assert torch.equal(again.map_state.ids, gpu.map_state.ids) and torch.equal(again.map_state.valid, gpu.map_state.valid)
     np.testing.assert_array_equal(again.keyframe_rotations, gpu.keyframe_rotations)
+    return scene, gpu
 
 
 def test_run_point_cloud_cuda_matches_cpu(cuda):
     """Same keyframes, successes, BA runs; the census within the
-    fused-vs-host bars; each kernel launched once per chunk plus frame 0."""
-    from slamtpu_torch.pipeline.point_cloud import run_point_cloud
+    fused-vs-host bars; each kernel launched once per chunk plus frame 0;
+    run_global_ba on the card's result lowers a finite error."""
+    from slamtpu_torch.pipeline.point_cloud import run_global_ba, run_point_cloud
 
-    _flagship_cuda_matches_cpu(run_point_cloud, cuda)
+    scene, gpu = _flagship_cuda_matches_cpu(run_point_cloud, cuda)
+    _, before, after = run_global_ba(gpu, scene.intrinsics, device=cuda)
+    assert np.isfinite(after) and after <= before
 
 
 def test_run_point_cloud_fused_cuda_matches_cpu(cuda):
@@ -416,7 +472,7 @@ def test_run_vo_batched_cuda_equals_run_vo(cuda):
 def test_continuous_brief_cuda_matches_cpu(cuda):
     """descriptor_bins=0 on the card: the raw and blurred windows in one K2
     launch; keypoints as on the CPU and descriptor bytes equal but for
-    rounding ties (chip_smoke.py's detector bar: 99 %)."""
+    rounding ties (99 %, as test_run_vo_cuda_matches_cpu holds binned BRIEF)."""
     import dataclasses
 
     from slamtpu_torch.feature.detector import detect_and_compute
@@ -434,9 +490,10 @@ def test_continuous_brief_cuda_matches_cpu(cuda):
 
 
 def test_pose_options_cuda_match_cpu_at_f64(cuda):
-    """Homography fallback with the IRLS refit, prescore, and
-    refine_matches on the card against the CPU on the same inputs and
-    draws: f64 poses within 1e-6, inlier sets equal; refined points exact."""
+    """The five-point RANSAC, the homography fallback with the IRLS refit,
+    prescore, and refine_matches on the card against the CPU on the same
+    inputs and draws: f64 poses within 1e-6, inlier sets equal; refined
+    points exact."""
     from slamtpu_torch.odometry.pose import estimate_relative_pose
     from slamtpu_torch.ops.patch_refine import refine_matches
     from slamtpu_torch.ops.ransac import PairDraws, RansacConfig
@@ -452,7 +509,8 @@ def test_pose_options_cuda_match_cpu_at_f64(cuda):
     gen = torch.Generator().manual_seed(0)
     draws = PairDraws(torch.rand((64, 300), generator=gen), torch.rand((64, 300), generator=gen),
                       torch.rand((300,), generator=gen))
-    for cfg in (RansacConfig(iters=64, homography_fallback=True, homography_iters=64, refit_method="irls"),
+    for cfg in (RansacConfig(iters=64, min_solver="5pt"),
+                RansacConfig(iters=64, homography_fallback=True, homography_iters=64, refit_method="irls"),
                 RansacConfig(iters=64, min_solver="5pt", prescore_subset=100)):
         ref = estimate_relative_pose(cam, p1, p2, config=cfg, uniforms=draws)
         gpu = estimate_relative_pose(cam, p1.to(cuda), p2.to(cuda), config=cfg,
@@ -466,3 +524,198 @@ def test_pose_options_cuda_match_cpu_at_f64(cuda):
     ref = refine_matches(frames[0], frames[1], q1, q2, mask)
     gpu = refine_matches(frames[0].to(cuda), frames[1].to(cuda), q1.to(cuda), q2.to(cuda), mask.to(cuda))
     torch.testing.assert_close(gpu.cpu(), ref, rtol=0, atol=1e-5)
+
+
+def test_run_vo_cuda_matches_cpu(cuda):
+    """The detector at binned BRIEF on the card as on the CPU (masks equal,
+    keypoints within 1e-3 px, descriptor bytes equal but for rounding ties);
+    run_vo on both at one seed: the same matches and successes, each within
+    1 degree of the true rotations. In f32 the two devices may elect
+    another five-point winner (ROADMAP A1), so their poses are held to
+    ground truth, not to each other."""
+    from slamtpu_torch.feature.detector import detect_and_compute
+    from slamtpu_torch.io.synthetic import render_sequence
+    from slamtpu_torch.pipeline.vo import run_vo
+
+    _, cfg = _options_scene()
+    scene = render_sequence(n_frames=8, height=160, width=240, n_points=600, step=0.3, seed=3, textured=True)
+    frames = torch.from_numpy(scene.frames)
+    gpu, cpu = detect_and_compute(frames.to(cuda), cfg.orb), detect_and_compute(frames, cfg.orb)
+    assert torch.equal(gpu.mask.cpu(), cpu.mask)
+    assert float((gpu.xy.cpu() - cpu.xy).abs().max()) < 1e-3
+    assert float((gpu.descriptors.cpu() == cpu.descriptors).float().mean()) > 0.99
+    runs = [run_vo(scene.frames, scene.intrinsics, cfg, chunk_size=4, device=dev) for dev in (cuda, "cpu")]
+    np.testing.assert_array_equal(runs[0].num_matches, runs[1].num_matches)
+    np.testing.assert_array_equal(runs[0].success, runs[1].success)
+    for run in runs:
+        tr = np.einsum("tij,tij->t", run.rotations, scene.rel_rotations)
+        err = np.degrees(np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0)))
+        assert run.success.any() and np.median(err[run.success]) <= 1.0
+
+
+VO_OPTIONS = {
+    "refine_matches": lambda c: dataclasses.replace(c, refine_matches=True),
+    "homography_fallback": lambda c: dataclasses.replace(c, ransac=dataclasses.replace(c.ransac,
+                                                                                       homography_fallback=True)),
+    "irls": lambda c: dataclasses.replace(c, ransac=dataclasses.replace(c.ransac, refit_method="irls")),
+    "prescore_subset": lambda c: dataclasses.replace(c, ransac=dataclasses.replace(c.ransac, prescore_subset=128)),
+    "descriptor_bins=0": lambda c: dataclasses.replace(c, orb=dataclasses.replace(c.orb, descriptor_bins=0)),
+    "robust": lambda c: type(c).robust(),
+}
+
+
+def _launches():
+    return corner_response.launches, extract_patches_batched.launches, five_point._nullspace4.launches
+
+
+def _assert_vo_gates(run, rel_rotations):
+    """The VO cells' ground-truth bars: finite rotations, success on at
+    least 80 % of the pairs, median rotation error at most 1 degree."""
+    ok = np.asarray(run.success, bool)
+    assert np.isfinite(run.rotations).all()
+    tr = np.einsum("tij,tij->t", run.rotations, rel_rotations[:len(ok)])
+    err = np.degrees(np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0)))
+    assert ok.mean() >= 0.8 and np.median(err[ok]) <= 1.0
+
+
+@pytest.mark.parametrize("path", ["run_vo", "run_vo_batched", "run_point_cloud", "run_point_cloud_fused",
+                                  "run_depth_mapping", *VO_OPTIONS])
+def test_each_main_path_launches_each_kernel_once_a_chunk(cuda, path):
+    """K1, K2 and N1 (counted as (K1, K2, N1)) once a chunk. On the
+    257-frame 1241x376 clip in chunks of 32, 9 of each with the VO gates:
+    run_vo at VoConfig() and with each VO option, and run_depth_mapping,
+    whose VO runs in chunks of 32. On small clips: run_vo_batched, once for
+    all its sequences, and both flagship runners, with one more detection
+    for frame 0 (at full size in the next test)."""
+    from slamtpu_torch.pipeline import point_cloud
+    from slamtpu_torch.pipeline.depth_mapping import run_depth_mapping
+    from slamtpu_torch.pipeline.vo import VoConfig, run_vo, run_vo_batched
+
+    if path == "run_vo_batched":
+        scene, cfg = _options_scene()  # 9 frames each: 3 chunks of 4
+        before = _launches()
+        run_vo_batched(np.stack([scene.frames[:9], scene.frames[4:]]), scene.intrinsics, cfg, chunk_size=4,
+                       device=cuda)
+        want = (3, 3, 3)
+    elif path.startswith("run_point_cloud"):
+        scene, cfg = _small_flagship()  # 16 pairs: 2 chunks of 8
+        before = _launches()
+        getattr(point_cloud, path)(scene.frames, scene.intrinsics, cfg, chunk_size=8, device=cuda)
+        want = (3, 3, 2)
+    elif path == "run_depth_mapping":
+        scene = _clip()
+        before = _launches()
+        res = run_depth_mapping(scene.frames, scene.intrinsics, lambda f: np.full(np.shape(f), 5.0, np.float32),
+                                stride=8, device=cuda)
+        want = (9, 9, 9)
+        assert len(res.points) and np.isfinite(res.points).all()
+        _assert_vo_gates(res.vo_run, scene.rel_rotations)
+    else:
+        scene = _clip()
+        before = _launches()
+        run = run_vo(scene.frames, scene.intrinsics, VO_OPTIONS.get(path, lambda c: c)(VoConfig()), chunk_size=32,
+                     device=cuda)
+        want = (9, 9, 9)
+        _assert_vo_gates(run, scene.rel_rotations)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == want
+
+
+def _schedule(res):
+    """What two runs at one seed must share: keyframes, BA runs, and the
+    map's ids and validity."""
+    return res.keyframe_frame_idx, res.ba_runs, res.map_state.ids.cpu().numpy(), res.map_state.valid.cpu().numpy()
+
+
+def test_fused_runner_matches_the_host_loop_at_full_size_and_frees_its_memory(cuda):
+    """PointCloudConfig() on the 257-frame 1241x376 clip in chunks of 32:
+    each runner launches K1 and K2 9 times (8 chunks and frame 0) and N1 8
+    times; the fused runner keeps the host loop's keyframes with its census
+    within the JAX package's fused-vs-host bars (tests/test_point_cloud.py;
+    BA runs may differ, ROADMAP A4), both pass the flagship's gates, a
+    second fused run repeats the first's schedule, and once its result is
+    deleted the card holds at most 64 MiB more than before it."""
+    from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud, run_point_cloud_fused
+
+    scene, cfg = _clip(), PointCloudConfig()
+    runs = []
+    for runner in (run_point_cloud, run_point_cloud_fused):
+        before = _launches()
+        runs.append(runner(scene.frames, scene.intrinsics, cfg, chunk_size=32, device=cuda))
+        assert tuple(a - b for a, b in zip(_launches(), before)) == (9, 9, 8), runner.__name__
+    host, fused = runs
+    np.testing.assert_array_equal(fused.keyframe_frame_idx, host.keyframe_frame_idx)
+    n_f, n_h = int(fused.map_state.valid.sum()), int(host.map_state.valid.sum())
+    o_f, o_h = len(fused.observations[0]), len(host.observations[0])
+    assert abs(n_f - n_h) <= max(3, 0.02 * n_h) and abs(o_f - o_h) <= 0.05 * o_h
+    for res in runs:
+        rot = res.keyframe_rotations.astype(np.float64)
+        assert res.successful_frames >= 0.8 * (len(scene.frames) - 1) and res.ba_runs > 0
+        assert np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max() <= 1e-4
+    first = _schedule(fused)
+    del runs, host, fused, res
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = run_point_cloud_fused(scene.frames, scene.intrinsics, cfg, chunk_size=32, device=cuda)
+    for a, b in zip(first, _schedule(out)):
+        np.testing.assert_array_equal(a, b)
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before <= 64 * 2**20
+
+
+def test_run_depth_mapping_cuda_on_true_depth(cuda):
+    """tests/test_depth_mapping.py's end-to-end check with VO on the card:
+    the renderer's depth maps in place of the network, the cloud's median
+    relative error under 0.15."""
+    from slamtpu_torch.feature.detector import OrbConfig
+    from slamtpu_torch.io.synthetic import render_sequence
+    from slamtpu_torch.ops.ransac import RansacConfig
+    from slamtpu_torch.pipeline.depth_mapping import run_depth_mapping
+    from slamtpu_torch.pipeline.vo import VoConfig
+
+    scene = render_sequence(n_frames=12, height=192, width=256, n_points=500, step=1.0, seed=6, render_depth=True)
+    depth = {f.tobytes(): d for f, d in zip(scene.frames, scene.depths)}
+    cfg = VoConfig(orb=OrbConfig(max_features=250), ransac=RansacConfig(iters=200))
+    res = run_depth_mapping(scene.frames, scene.intrinsics, lambda f: depth[np.asarray(f).tobytes()], vo_config=cfg,
+                            stride=6, keyframe_stride=2, device=cuda)
+    assert len(res.points) > 300 and np.isfinite(res.points).all()
+    d = np.linalg.norm(res.points[:, None, :] - scene.points[None, :, :], axis=-1)
+    assert np.median(d.min(axis=1) / np.maximum(np.linalg.norm(res.points, axis=1), 1.0)) < 0.15
+
+
+def test_eager_wrappers_on_the_card(cuda):
+    """One pair through the root package's OrbDetector, PoseEstimator and
+    KeyframeSelector: a finite pose on at least 8 inliers."""
+    import slamtpu_torch
+    from slamtpu_torch.feature.matcher import FeatureMatcher
+
+    scene, cfg = _options_scene()
+    det = slamtpu_torch.OrbDetector(max_features=cfg.orb.max_features, device=cuda)
+    f1, f2 = det.detect_and_compute(scene.frames[0]), det.detect(scene.frames[1])
+    matcher = FeatureMatcher()
+    good = matcher.filter_good_matches(matcher.match_descriptors(f1.descriptors, f2.descriptors, f1.mask, f2.mask))
+    est = slamtpu_torch.PoseEstimator(scene.intrinsics, device=cuda)
+    p1, p2 = est.extract_matched_points(f1.xy.cpu().numpy(), f2.xy.cpu().numpy(), good)
+    res = est.compute_essential_matrix(p1, p2, config=cfg.ransac)
+    rot, trans = est.recover_pose(res, p1, p2)
+    slamtpu_torch.KeyframeSelector(device=cuda).should_be_keyframe(rot, trans, len(p1))
+    assert np.isfinite(rot).all() and np.isfinite(trans).all() and int(res.num_inliers) >= 8
+
+
+def test_step_timer_and_profile_trace_on_the_card(cuda, tmp_path):
+    """StepTimer around a run that force_sync waits for, and a Chrome trace
+    of a run from profile_trace."""
+    from slamtpu_torch.pipeline.vo import run_vo
+    from slamtpu_torch.utils.metrics import StepTimer, force_sync, profile_trace
+
+    scene, cfg = _options_scene()
+    timer = StepTimer()
+    timer.start()
+    force_sync(run_vo(scene.frames, scene.intrinsics, cfg, chunk_size=4, device=cuda))
+    timer.stop()
+    assert timer.times[0] > 0
+    with profile_trace(str(tmp_path / "trace")) as trace_dir:
+        run_vo(scene.frames, scene.intrinsics, cfg, chunk_size=4, device=cuda)
+    assert os.path.getsize(os.path.join(trace_dir, "trace.json")) > 0

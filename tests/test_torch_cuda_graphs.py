@@ -108,7 +108,7 @@ def test_pair_poses_replay_is_eager_bit_for_bit(cuda, clip, b, c):
     assert bool(got_first[4][:, 0].any()) is False  # the masked seed step
     assert counts["pose.graph_eager"] == counts["pose.graph_captures"] == len(STAGES)
     assert counts["pose.graph_replays"] == 2 * len(STAGES)
-    assert counts["pose.nullspace_kernel"] == 4 == five_point._nullspace4.launches - launches
+    assert five_point._nullspace4.launches - launches == 4
 
 
 def test_pair_poses_makes_no_host_sync_eager_captured_or_replayed(cuda, clip):
@@ -147,6 +147,7 @@ def test_pose_estimator_replay_is_eager_bit_for_bit(cuda, clip):
         eager.append(ref_call())
     graphs.reset()
     got_call = calls()
+    launches = five_point._nullspace4.launches
     with metrics.tracing():
         metrics.records()
         got = [got_call() for _ in range(3)]
@@ -157,4 +158,4 @@ def test_pose_estimator_replay_is_eager_bit_for_bit(cuda, clip):
     counts = _counts(rec, by_span=True)
     for stage in ("pose.hypotheses", "pose.score", "pose.polish"):
         assert [counts.get((f"pose.graph_{k}", stage), 0) for k in ("eager", "captures", "replays")] == [1, 1, 1]
-    assert _counts(rec)["pose.nullspace_kernel"] == 3
+    assert five_point._nullspace4.launches - launches == 3

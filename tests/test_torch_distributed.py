@@ -6,7 +6,9 @@ the sharded VO step against the serial run_vo (tests/distributed_worker.py's
 tiny clip: 8 frames of 120x160, 128 features, 64 hypotheses); and one
 process with nothing set, which forms a one-rank group and a (1, 1) mesh,
 as a one-GPU user does. The three configurations run at once, spawned once
-for the module; every wait has a timeout.
+for the module; every wait has a timeout. The `cuda` cases (they skip
+without a card) run the layer on the card against the serial runners
+there: one NCCL process, and four Gloo ranks sharing the card.
 """
 
 import numpy as np
@@ -92,6 +94,65 @@ def test_one_process_forms_a_one_rank_group(runs):
     (batched,) = single["batched"]
     for k in ("kf_idx", "valid", "kf_rot", "positions"):
         np.testing.assert_array_equal(batched[k], got[k])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _assert_flagship_bars(got: dict, ref):
+    """tests/test_sharding.py's flagship bars: keyframes, BA runs and
+    successful frames identical, landmarks within max(15, 15 %)."""
+    assert got["kf_idx"].tolist() == ref.keyframe_frame_idx.tolist()
+    assert (got["ba_runs"], got["successful"]) == (ref.ba_runs, ref.successful_frames)
+    n_got, n_ref = int(got["valid"].sum()), int(ref.map_state.valid.sum())
+    assert abs(n_got - n_ref) <= max(15, 0.15 * n_ref), (n_got, n_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["single", "shared"], ids=["one_nccl_rank", "four_gloo_ranks"])
+def test_parallel_layer_on_the_card(tmp_path, cuda, mode):
+    """One NCCL process: its block of the sharded step against run_vo, its
+    sharded flagship against the fused runner, its batched one (B = 1)
+    equal to the sharded one. Four Gloo ranks sharing the card: each
+    rank's block of the sharded step against run_vo, the batched flagship
+    on a (2, 2) mesh against the fused runner of each clip. A rank's step
+    detects its block in one launch of each kernel; the serial runs detect
+    in the same chunks (the card's resize kernels depend on the batch
+    size)."""
+    world = 1 if mode == "single" else N_RANKS
+    procs = spawn(mode, world, tmp_path, device="cuda")
+    try:
+        scene = render_sequence(**worker.TINY)
+        serial = run_vo(scene.frames, scene.intrinsics, worker.TINY_VO, chunk_size=worker.TINY["n_frames"] // world,
+                        seed=0, device=cuda)
+        clips = [scene] if world == 1 else [render_sequence(**{**worker.TINY, "seed": s}) for s in worker.SHARED_SEEDS]
+        fused = [run_point_cloud_fused(c.frames, c.intrinsics, worker.FLAGSHIP, seed=b, device=cuda)
+                 for b, c in enumerate(clips)]
+        ranks = collect(procs, mode, tmp_path, timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [r["rank_world"] for r in ranks] == [(i, world) for i in range(world)]
+    assert {r["backend"] for r in ranks} == {"nccl" if world == 1 else "gloo"}
+    for r in ranks:
+        _assert_slice_matches_serial(r, serial)
+        assert r["vo_launches"] == (1, 1)
+    for got, ref in zip(ranks[0]["batched"], fused, strict=True):
+        _assert_flagship_bars(got, ref)
+    if world == 1:
+        got = ranks[0]["sharded_flagship"]
+        _assert_flagship_bars(got, fused[0])
+        for k in ("kf_idx", "valid", "kf_rot", "positions"):
+            np.testing.assert_array_equal(ranks[0]["batched"][0][k], got[k])
+    else:
+        for r in ranks[1:]:
+            for got, mine in zip(r["batched"], ranks[0]["batched"]):
+                np.testing.assert_array_equal(got["valid"], mine["valid"])
 
 
 def test_default_is_nccl_on_the_card(monkeypatch):

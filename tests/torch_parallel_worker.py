@@ -1,21 +1,27 @@
 """One rank of the port's multi-process tests (tests/test_torch_parallel.py,
-tests/test_torch_distributed.py): a Gloo process group on the CPU, the
-port's parallel runners on it, this rank's results pickled for the parent.
+tests/test_torch_distributed.py): a process group, the port's parallel
+runners on it, this rank's results pickled for the parent.
 
-    python torch_parallel_worker.py <mode> <rank> <world> <port> <workdir>
+    python torch_parallel_worker.py <mode> <rank> <world> <port> <workdir> <device>
 
-Modes:
-  parallel - 4 ranks, explicit arguments: the sharded VO step on a (1, 4)
-             mesh (the port's draws at f64; the JAX draws at f32 with the
-             state-dependent keyframe configuration; refine_matches),
-             run_point_cloud_sharded on it, and run_point_cloud_batched on a
-             (2, 2) mesh; inputs from <workdir>/inputs.npz;
+On the CPU every group is Gloo. On a card a one-process group is NCCL and
+the ranks of a larger one share the card over Gloo. Modes:
+  parallel - 4 ranks on the CPU, explicit arguments: the sharded VO step
+             on a (1, 4) mesh (the port's draws at f64; the JAX draws at
+             f32 with the state-dependent keyframe configuration;
+             refine_matches), run_point_cloud_sharded on it, and
+             run_point_cloud_batched on a (2, 2) mesh; inputs from
+             <workdir>/inputs.npz;
   explicit - 4 ranks through initialize_multihost(coordinator, n, id);
   env      - 4 ranks through the SLAMTPU_* variables;
   single   - 1 process through initialize_multihost() with nothing set:
-             the one-process group and its (1, 1) mesh.
-The last three run the tiny clip of tests/distributed_worker.py and report
-their local_time_slice and their block of the sharded step.
+             the one-process group and its (1, 1) mesh;
+  shared   - 4 ranks, explicit arguments, as "explicit", then
+             run_point_cloud_batched on a (2, 2) mesh over the tiny clips
+             of seeds 7 and 11.
+The last four run the tiny clip of tests/distributed_worker.py and report
+their local_time_slice, their block of the sharded step and its launches
+of kernels K1 and K2.
 
 Imports torch and the port only (no jax, no conftest). The parents start
 the ranks with `spawn` and wait for them with `collect`.
@@ -38,6 +44,8 @@ from slamtpu_torch.feature.detector import OrbConfig  # noqa: E402
 from slamtpu_torch.io.synthetic import render_sequence  # noqa: E402
 from slamtpu_torch.mapping.keyframe import KeyframeConfig  # noqa: E402
 from slamtpu_torch.odometry.camera import CameraIntrinsics  # noqa: E402
+from slamtpu_torch.ops.corner import corner_response  # noqa: E402
+from slamtpu_torch.ops.patch import extract_patches_batched  # noqa: E402
 from slamtpu_torch.ops.ransac import RansacConfig  # noqa: E402
 from slamtpu_torch.parallel import distributed as pdist  # noqa: E402
 from slamtpu_torch.parallel.flagship import run_point_cloud_batched, run_point_cloud_sharded  # noqa: E402
@@ -55,6 +63,7 @@ FLAGSHIP = PointCloudConfig(
 )
 TINY = dict(n_frames=8, height=120, width=160, n_points=400, step=0.5, seed=7)
 TINY_VO = VoConfig(orb=OrbConfig(max_features=128), ransac=RansacConfig(iters=64))
+SHARED_SEEDS = (7, 11)  # the tiny clips of mode "shared", run at seeds 0 and 1
 
 
 def free_port() -> int:
@@ -71,14 +80,15 @@ def worker_env(extra=None) -> dict:
     return {**env, **(extra or {})}
 
 
-def spawn(mode: str, world: int, workdir, env_for=lambda rank, port: {}):
+def spawn(mode: str, world: int, workdir, env_for=lambda rank, port: {}, device: str = "cpu"):
     """Start `world` worker ranks on a free port, rank r with the variables
     env_for(r, port) added; their output goes to <workdir>/<mode>_rank<r>.log."""
     port = free_port()
     procs = []
     for rank in range(world):
         log = open(os.path.join(workdir, f"{mode}_rank{rank}.log"), "w")
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, str(rank), str(world), str(port), str(workdir)],
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, str(rank), str(world), str(port),
+                                       str(workdir), device],
                                       stdout=log, stderr=subprocess.STDOUT, env=worker_env(env_for(rank, port))))
         log.close()
     return procs
@@ -105,13 +115,13 @@ def collect(procs, mode: str, workdir, timeout: float) -> list:
 
 
 def _np(result) -> dict:
-    return {k: v.numpy() for k, v in result._asdict().items()}
+    return {k: v.cpu().numpy() for k, v in result._asdict().items()}
 
 
 def _flagship(res) -> dict:
     return dict(kf_idx=res.keyframe_frame_idx, kf_rot=res.keyframe_rotations, kf_trans=res.keyframe_translations,
-                ba_runs=res.ba_runs, successful=res.successful_frames, valid=res.map_state.valid.numpy(),
-                positions=res.map_state.positions.numpy(), n_obs=len(res.observations[0]))
+                ba_runs=res.ba_runs, successful=res.successful_frames, valid=res.map_state.valid.cpu().numpy(),
+                positions=res.map_state.positions.cpu().numpy(), n_obs=len(res.observations[0]))
 
 
 def _parallel(workdir: str) -> dict:
@@ -136,30 +146,39 @@ def _parallel(workdir: str) -> dict:
     return out
 
 
-def _tiny(mesh) -> dict:
+def _tiny(mesh, device: str) -> dict:
     scene = render_sequence(**TINY)
     t0, t1 = pdist.local_time_slice(mesh, TINY["n_frames"])
     block = pdist.from_process_local(mesh, scene.frames[None, t0:t1], scene.frames[None].shape)
-    return dict(slice=(t0, t1), mesh=tuple(mesh.shape),
-                vo=_np(sharded_vo_step(mesh, block, scene.intrinsics, TINY_VO, seed=0, device="cpu")))
+    before = corner_response.launches, extract_patches_batched.launches
+    vo = _np(sharded_vo_step(mesh, block, scene.intrinsics, TINY_VO, seed=0, device=device))
+    return dict(slice=(t0, t1), mesh=tuple(mesh.shape), vo=vo,
+                vo_launches=(corner_response.launches - before[0], extract_patches_batched.launches - before[1]))
 
 
 def main() -> None:
-    mode, rank, world, port, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
-    if mode in ("parallel", "explicit"):
-        got = pdist.initialize_multihost(f"127.0.0.1:{port}", world, rank, device="cpu")
+    mode, rank, world, port, workdir, device = sys.argv[1:7]
+    rank, world = int(rank), int(world)
+    backend = None if world == 1 else "gloo"
+    if mode in ("parallel", "explicit", "shared"):
+        got = pdist.initialize_multihost(f"127.0.0.1:{port}", world, rank, device=device, backend=backend)
     else:  # "env" reads the SLAMTPU_* variables its parent set; "single" finds nothing set
-        got = pdist.initialize_multihost(device="cpu")
+        got = pdist.initialize_multihost(device=device, backend=backend)
     try:
-        out = _parallel(workdir) if mode == "parallel" else _tiny(pdist.global_mesh(data=1))
+        out = _parallel(workdir) if mode == "parallel" else _tiny(pdist.global_mesh(data=1), device)
         if mode == "single":
             scene = render_sequence(**TINY)
             mesh = make_mesh()
             out["default_mesh"] = tuple(mesh.shape)
             out["sharded_flagship"] = _flagship(run_point_cloud_sharded(scene.frames, scene.intrinsics, mesh, FLAGSHIP,
-                                                                        device="cpu"))
+                                                                        device=device))
             out["batched"] = [_flagship(r) for r in run_point_cloud_batched(scene.frames[None], scene.intrinsics,
-                                                                            mesh, FLAGSHIP, device="cpu")]
+                                                                            mesh, FLAGSHIP, device=device)]
+        if mode == "shared":
+            scenes = [render_sequence(**{**TINY, "seed": s}) for s in SHARED_SEEDS]
+            out["batched"] = [_flagship(r) for r in run_point_cloud_batched(
+                np.stack([sc.frames for sc in scenes]), scenes[0].intrinsics, make_mesh(data=2), FLAGSHIP,
+                seeds=list(range(len(scenes))), device=device)]
         out["rank_world"] = got
         out["backend"] = torch.distributed.get_backend()
     finally:

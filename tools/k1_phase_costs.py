@@ -8,8 +8,9 @@ Copies slamtpu_torch/csrc/corner_response.cu into build/k1_phase_costs/,
 wraps each phase of the kernel's tile loop in a preprocessor switch, builds
 the full kernel and one variant per phase (one nvcc each, in parallel, with
 the package's flags), and times each on the first 32-frame chunk of
-bench.py's clip (1241x376, 8 levels) with chip_smoke.py's method (CUDA
-events around the replay of a CUDA graph of back-to-back launches). A
+the VO cells' 1241x376 clip (8 levels) with tools/time_kernels.py's
+method (CUDA events around the replay of a CUDA graph of back-to-back
+launches). A
 variant's outputs are wrong by construction; only its time is read, and
 the time saved by leaving a phase out is that phase's cost where the others
 do not hide it. Phases:
@@ -70,13 +71,13 @@ def main() -> int:
         print("k1_phase_costs: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
     from slamtpu_torch import _build
     from slamtpu_torch.feature.detector import OrbConfig
-    from slamtpu_torch.io.synthetic import render_sequence
+    from slamtpu_torch.io.synthetic import render_sequence_cached
     from slamtpu_torch.odometry.camera import CameraIntrinsics
     from slamtpu_torch.ops import corner
     from slamtpu_torch.ops.pyramid import build_pyramid
+    from tools.time_kernels import device_ms, gpu_name_and_power
 
     OUT.mkdir(parents=True, exist_ok=True)
     src = OUT / "corner_response_switched.cu"
@@ -95,9 +96,9 @@ def main() -> int:
 
     cfg = OrbConfig()
     subpix = [lv <= cfg.subpixel_max_octave for lv in range(cfg.n_levels)]
-    scene = render_sequence(n_frames=cs.CHUNK, height=cs.HEIGHT, width=cs.WIDTH, n_points=4000, step=0.8,
-                            intrinsics=CameraIntrinsics.kitti(), seed=0, noise=2.0)
-    base = torch.as_tensor(scene.frames).cuda().float()
+    scene = render_sequence_cached(n_frames=257, height=376, width=1241, n_points=4000, step=0.8,
+                                   intrinsics=CameraIntrinsics.kitti(), seed=0, noise=2.0)
+    base = torch.as_tensor(scene.frames[:32]).cuda().float()
     pyramids = [[x.contiguous() for x in build_pyramid(base + 0.25 * i, cfg.n_levels, cfg.scale_factor)]
                 for i in range(5)]
 
@@ -119,9 +120,9 @@ def main() -> int:
                 raise RuntimeError(f"launch failed with CUDA error {err}")
             return outs
 
-        times[name] = cs.device_ms(torch, call, pyramids, args.reps)
+        times[name] = device_ms(torch, call, pyramids, args.reps)
     saved = {name[len("without_"):]: times["whole"] - t for name, t in times.items() if name != "whole"}
-    print(json.dumps({"card": cs.gpu_name_and_power(), "ms": times, "saved_ms": saved, "registers": registers}))
+    print(json.dumps({"card": gpu_name_and_power(), "ms": times, "saved_ms": saved, "registers": registers}))
     return 0
 
 

@@ -3,9 +3,10 @@
 
     python3 tools/vo_batch_invariance.py [--device cuda]
 
-On bench.py's clip (rendered as chip_smoke.py renders it), four windows of
-128 frames at offsets 0, 43, 86 and 129, chunk 32. Prints, for a batch of
-4 x 32 frames against the first 32 alone:
+On the VO cells' 257-frame 1241x376 clip (KITTI intrinsics, 4000
+landmarks, step 0.8, seed 0, noise 2.0; cached in .scene_cache), four
+windows of 128 frames at offsets 0, 43, 86 and 129, chunk 32. Prints, for
+a batch of 4 x 32 frames against the first 32 alone:
   - the pyramid built over the whole batch (one resize matmul per level
     for all frames) and built per sequence (`detect_and_compute(...,
     groups=B)`, what the batched frontend does): largest difference per
@@ -27,6 +28,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+OFFSETS, FRAMES, CHUNK = (0, 43, 86, 129), 128, 32  # the windows and the chunk
 
 
 def main() -> int:
@@ -37,17 +39,20 @@ def main() -> int:
     import numpy as np
     import torch
 
-    import chip_smoke
     from slamtpu_torch import _build
+    from slamtpu_torch.io.synthetic import render_sequence_cached
+    from slamtpu_torch.odometry.camera import CameraIntrinsics
     from slamtpu_torch.ops.pyramid import build_pyramid
     from slamtpu_torch.pipeline.vo import VoConfig, run_vo, run_vo_batched
+    from tools.time_kernels import gpu_name_and_power
 
     dev = torch.device(args.device)
     if dev.type == "cuda":
         _build.build()
-        print(chip_smoke.gpu_name_and_power())
-    scene = chip_smoke.render()
-    offsets, frames, chunk = chip_smoke.BATCH_OFFSETS, chip_smoke.BATCH_FRAMES, chip_smoke.CHUNK
+        print(gpu_name_and_power())
+    scene = render_sequence_cached(n_frames=257, height=376, width=1241, n_points=4000, step=0.8,
+                                   intrinsics=CameraIntrinsics.kitti(), seed=0, noise=2.0)
+    offsets, frames, chunk = OFFSETS, FRAMES, CHUNK
 
     solo = torch.as_tensor(scene.frames[:chunk]).to(dev).float()
     batch = torch.cat([torch.as_tensor(scene.frames[o : o + chunk]).to(dev).float() for o in offsets])
