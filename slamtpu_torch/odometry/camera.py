@@ -6,6 +6,8 @@ import dataclasses
 
 import torch
 
+from ..utils.graphs import device_constant
+
 __all__ = ["CameraIntrinsics"]
 
 
@@ -29,13 +31,12 @@ class CameraIntrinsics:
         return CameraIntrinsics(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
 
     def to_matrix(self, dtype=torch.float32, device=None) -> torch.Tensor:
-        """3x3 calibration matrix K. On CUDA it is copied from pinned host
-        memory without blocking, so building it costs no host
-        synchronization (the fused flagship step builds it per keyframe)."""
-        k = torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]], dtype=dtype)
-        if device is not None and torch.device(device).type == "cuda":
-            return k.pin_memory().to(device, non_blocking=True)
-        return k.to(device)
+        """3x3 calibration matrix K, built once per (values, dtype, device)
+        and shared: callers never write to it. Reading it copies nothing
+        from the host, so the fused flagship's keyframe step, which reads it
+        inside a CUDA graph, can be replayed."""
+        return device_constant(((self.fx, 0.0, self.cx), (0.0, self.fy, self.cy), (0.0, 0.0, 1.0)), dtype,
+                               torch.device("cpu" if device is None else device))
 
     def project(self, points_cam: torch.Tensor) -> torch.Tensor:
         """Camera-frame 3D points [..., 3] -> pixels [..., 2] (no z <= 0

@@ -30,6 +30,7 @@ chain in `pose_dtype`, a few host reads per chunk.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -52,6 +53,7 @@ from ..mapping.triangulation import MapPoint, triangulate_points
 from ..odometry.camera import CameraIntrinsics
 from ..odometry.trajectory import Trajectory
 from ..ops.hamming import descriptor_bits
+from ..utils import graphs
 from ..utils.metrics import span
 from .vo import VoConfig, vo_frontend
 
@@ -515,7 +517,8 @@ def run_global_ba(result: PointCloudResult, intrinsics: CameraIntrinsics, ba_con
 # whose predicate holds, as lax.cond runs only the taken branch. Nothing
 # else in a step reads the device: dropped scatter rows go to a scratch row
 # (mapping/map.py::_set_rows), so every kept row is written once and two
-# CUDA runs agree.
+# CUDA runs agree. On the card the step's device-only part, everything
+# before the BA-due read, replays one CUDA graph (`_map_step`).
 # ---------------------------------------------------------------------------
 
 
@@ -663,60 +666,92 @@ def _fused_window_ba(state: MapState, ring_rot, ring_trans, ring_kf, ring_slots,
         return new_rot, new_trans, positions
 
 
+def _carry_tensors(carry: _FusedCarry) -> tuple:
+    """The carry's tensors in field order (the map state's six first),
+    kf_count left out."""
+    return (*carry.map_state, *carry[1:10], *carry[11:])
+
+
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy of it at storage offset 0 where it is a view
+    elsewhere: a graph's key holds each input's layout (utils/graphs.py)."""
+    return t if t.storage_offset() == 0 and t.is_contiguous() else t.clone(memory_format=torch.contiguous_format)
+
+
+def _map_step(xy, desc, mask, rel_r, rel_t, kf_idx, *carry_tensors, intrinsics, config: PointCloudConfig):
+    """The device-only part of a keyframe step: re-match against the
+    previous keyframe, triangulate and insert, re-associate and log the
+    observations into the ring. It reads nothing from the host that changes
+    from step to step (kf_idx [1] int32 is the new keyframe's index), so one
+    CUDA graph replays it for every step of a run. Returns (new_r, new_t,
+    the map state's six tensors, free_head, map_bits, map_pops, the ring's
+    seven tensors, slots, oids, opx, omask)."""
+    carry = _FusedCarry(MapState(*carry_tensors[:6]), *carry_tensors[6:15], None, *carry_tensors[15:])
+    state = carry.map_state
+    dev = xy.device
+    o_cap = config.max_obs_per_kf
+    with span("map.match"):
+        good = _match_keyframes(carry.prev_desc, carry.prev_mask, desc, mask)
+        xy2 = xy[good.train_idx]
+        desc2 = desc[good.train_idx]
+
+    with span("map.triangulate"):
+        # Correct world-to-camera chain in the pose dtype (the frontend's
+        # f32 relative pose is promoted exactly); triangulation stays f32.
+        rel_r = rel_r.to(carry.prev_rot.dtype)
+        new_r = rel_r @ carry.prev_rot
+        new_t = rel_r @ carry.prev_trans + rel_t.to(carry.prev_rot.dtype)
+        r32, t32 = new_r.float(), new_t.float()
+        xyz, tri_valid = triangulate_points(intrinsics, (carry.prev_rot.float(), carry.prev_trans.float()),
+                                            (r32, t32), carry.prev_xy, xy2)
+        state, free_head, slot_i = _map_insert_at(state, carry.free_slots, carry.free_head, xyz, desc2,
+                                                  tri_valid & good.mask)
+        ins_bits, ins_pops = descriptor_bits(desc2)
+        map_bits = _set_rows(carry.map_bits, slot_i, ins_bits)
+        map_pops = _set_rows(carry.map_pops, slot_i, ins_pops)
+
+    # Re-associate the map with this keyframe: the observation count rises
+    # for every match, the ring logs those within the reprojection gate.
+    with span("map.reassociate"):
+        state, midx, mgood = _reassociate(state, intrinsics, desc, mask, xy, (r32, t32),
+                                          config.obs_max_reproj_px, map_bits, map_pops)
+
+    with span("map.ring"):
+        # The first o_cap matched slots in index order as observation rows
+        # (padding rows point at slot 0, unmasked).
+        obs_rank = torch.cumsum(mgood, dim=0, dtype=torch.int32) - 1
+        slots = _set_rows(torch.zeros((o_cap,), dtype=torch.int32, device=dev),
+                          torch.where(mgood & (obs_rank < o_cap), obs_rank, o_cap),
+                          torch.arange(state.capacity, dtype=torch.int32, device=dev))
+        omask = mgood[slots] & (torch.arange(o_cap, device=dev) <= obs_rank[-1])
+        opx = xy[midx[slots]]
+        oids = state.ids[slots]
+
+        ring = (torch.cat([carry.ring_rot[1:], new_r[None]]), torch.cat([carry.ring_trans[1:], new_t[None]]),
+                torch.cat([carry.ring_kf[1:], kf_idx]), torch.cat([carry.ring_slots[1:], slots[None]]),
+                torch.cat([carry.ring_ids[1:], oids[None]]), torch.cat([carry.ring_px[1:], opx[None]]),
+                torch.cat([carry.ring_mask[1:], omask[None]]))
+    return (new_r, new_t, *state, free_head, map_bits, map_pops, *ring, slots, oids, opx, omask)
+
+
 def _kf_step(carry: _FusedCarry, xy, desc, mask, rel_r, rel_t, intrinsics, config: PointCloudConfig):
-    """One keyframe: re-match against the previous keyframe, triangulate and
-    insert, re-associate and log observations into the ring, then BA and
-    prune when due. Returns (new carry, step outputs)."""
+    """One keyframe: the map step (`_map_step`, a CUDA graph on the card
+    once its key recurs), then BA and prune when due. Returns (new carry,
+    step outputs)."""
     with span("map.kf_step"):
-        state = carry.map_state
-        dev = xy.device
-        o_cap = config.max_obs_per_kf
-        with span("map.match"):
-            good = _match_keyframes(carry.prev_desc, carry.prev_mask, desc, mask)
-            xy2 = xy[good.train_idx]
-            desc2 = desc[good.train_idx]
-
-        with span("map.triangulate"):
-            # Correct world-to-camera chain in the pose dtype (the frontend's
-            # f32 relative pose is promoted exactly); triangulation stays f32.
-            rel_r = rel_r.to(carry.prev_rot.dtype)
-            new_r = rel_r @ carry.prev_rot
-            new_t = rel_r @ carry.prev_trans + rel_t.to(carry.prev_rot.dtype)
-            r32, t32 = new_r.float(), new_t.float()
-            xyz, tri_valid = triangulate_points(intrinsics, (carry.prev_rot.float(), carry.prev_trans.float()),
-                                                (r32, t32), carry.prev_xy, xy2)
-            state, free_head, slot_i = _map_insert_at(state, carry.free_slots, carry.free_head, xyz, desc2,
-                                                      tri_valid & good.mask)
-            ins_bits, ins_pops = descriptor_bits(desc2)
-            map_bits = _set_rows(carry.map_bits, slot_i, ins_bits)
-            map_pops = _set_rows(carry.map_pops, slot_i, ins_pops)
-
-        # Re-associate the map with this keyframe: the observation count rises
-        # for every match, the ring logs those within the reprojection gate.
-        with span("map.reassociate"):
-            state, midx, mgood = _reassociate(state, intrinsics, desc, mask, xy, (r32, t32),
-                                              config.obs_max_reproj_px, map_bits, map_pops)
-
-        with span("map.ring"):
-            # The first o_cap matched slots in index order as observation rows
-            # (padding rows point at slot 0, unmasked).
-            obs_rank = torch.cumsum(mgood, dim=0, dtype=torch.int32) - 1
-            slots = _set_rows(torch.zeros((o_cap,), dtype=torch.int32, device=dev),
-                              torch.where(mgood & (obs_rank < o_cap), obs_rank, o_cap),
-                              torch.arange(state.capacity, dtype=torch.int32, device=dev))
-            omask = mgood[slots] & (torch.arange(o_cap, device=dev) <= obs_rank[-1])
-            opx = xy[midx[slots]]
-            oids = state.ids[slots]
-
-            kf_idx = carry.kf_count
-            new_count = kf_idx + 1
-            ring_rot = torch.cat([carry.ring_rot[1:], new_r[None]])
-            ring_trans = torch.cat([carry.ring_trans[1:], new_t[None]])
-            ring_kf = torch.cat([carry.ring_kf[1:], torch.full((1,), kf_idx, dtype=torch.int32, device=dev)])
-            ring_slots = torch.cat([carry.ring_slots[1:], slots[None]])
-            ring_ids = torch.cat([carry.ring_ids[1:], oids[None]])
-            ring_px = torch.cat([carry.ring_px[1:], opx[None]])
-            ring_mask = torch.cat([carry.ring_mask[1:], omask[None]])
+        # Every input at offset 0, so that one key serves each step of each
+        # chunk; the index is filled on the device, as the region reads it.
+        xy, desc, mask, rel_r, rel_t = (_fresh(t) for t in (xy, desc, mask, rel_r, rel_t))
+        kf_idx = carry.kf_count
+        new_count = kf_idx + 1
+        kf_t = torch.full((1,), kf_idx, dtype=torch.int32, device=xy.device)
+        out = graphs.run("map.step", functools.partial(_map_step, intrinsics=intrinsics, config=config),
+                         (xy, desc, mask, rel_r, rel_t, kf_t, *(_fresh(t) for t in _carry_tensors(carry))),
+                         static=(config, intrinsics))
+        new_r, new_t, state = out[0], out[1], MapState(*out[2:8])
+        free_head, map_bits, map_pops = out[8:11]
+        ring_rot, ring_trans, ring_kf, ring_slots, ring_ids, ring_px, ring_mask = out[11:18]
+        slots, oids, opx, omask = out[18:]
 
         # Windowed BA every ba_interval keyframes, when the window logged an
         # observation: the step's one host read.

@@ -42,7 +42,7 @@ from .metrics import count
 
 __all__ = ["CAPACITY", "GraphCache", "device_constant", "host_effect", "reset", "run"]
 
-CAPACITY = 16  # graphs kept; the VO pose stage holds 5 a chunk shape
+CAPACITY = 16  # graphs kept; the VO pose stage holds 5 a chunk shape, the flagship's map step 1
 _SEEN = 64  # keys seen once that are remembered
 
 _SKIP = object()
@@ -72,8 +72,13 @@ def _effects_mode(mode):
 def device_constant(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """`torch.tensor(value, dtype=dtype, device=device)` built once per
     (value, dtype, device), so a region that reads it copies nothing from
-    the host; value is a number or nested tuples. Never written to."""
-    return torch.tensor(value, dtype=dtype, device=device)
+    the host; value is a number or nested tuples. Never written to. On
+    CUDA it is copied from pinned memory without blocking, so building it
+    costs no host synchronization."""
+    host = torch.tensor(value, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 def _buffer_like(t: torch.Tensor) -> torch.Tensor:

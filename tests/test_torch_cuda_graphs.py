@@ -1,6 +1,6 @@
-"""CUDA graphs of the pose stage on the card: a replay is the eager call
-bit for bit. Marked `cuda`: each test skips on a host without a CUDA device
-(decided inside the fixture). No JAX here, so on the GPU
+"""CUDA graphs of the pose stage and of the fused flagship's map step on
+the card: a replay is the eager call bit for bit. Marked `cuda`: each test
+skips on a host without a CUDA device (decided inside the fixture). No JAX here, so on the GPU
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py`
 runs them.
 
@@ -8,7 +8,12 @@ For each case, eager references come from calls that are each a first
 sighting (the cache is reset before each); then one key is seen once,
 captured with one draw block and replayed with another, so the static
 buffers must be refreshed, and the outputs cloned at the capture must
-survive the replay."""
+survive the replay. The map step is held at the flagship cell's size: whole
+runs through the cache against a run with every region eager.
+"""
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -19,7 +24,8 @@ from slamtpu_torch.io.synthetic import render_sequence
 from slamtpu_torch.odometry.pose import PoseEstimator
 from slamtpu_torch.ops import five_point
 from slamtpu_torch.ops.ransac import PairDraws, pair_draws
-from slamtpu_torch.pipeline.vo import VoConfig, _detect, _pair_poses, seed_features
+from slamtpu_torch.pipeline import point_cloud as pc
+from slamtpu_torch.pipeline.vo import VoConfig, _detect, _pair_poses, seed_features, vo_frontend
 from slamtpu_torch.utils import graphs, metrics
 
 pytestmark = pytest.mark.cuda
@@ -159,3 +165,121 @@ def test_pose_estimator_replay_is_eager_bit_for_bit(cuda, clip):
     for stage in ("pose.hypotheses", "pose.score", "pose.polish"):
         assert [counts.get((f"pose.graph_{k}", stage), 0) for k in ("eager", "captures", "replays")] == [1, 1, 1]
     assert five_point._nullspace4.launches - launches == 3
+
+
+def _cells_clip():
+    """The flagship cell's clip: 257 frames of 1241x376 (KITTI intrinsics,
+    4000 landmarks, step 0.8, seed 0, noise 2.0), rendered once into
+    .scene_cache (tests/test_torch_cuda.py renders the same)."""
+    from slamtpu_torch.io.synthetic import render_sequence_cached
+    from slamtpu_torch.odometry.camera import CameraIntrinsics
+
+    return render_sequence_cached(n_frames=257, height=376, width=1241, n_points=4000, step=0.8,
+                                  intrinsics=CameraIntrinsics.kitti(), seed=0, noise=2.0)
+
+
+def _first_chunk(scene, cfg, cuda):
+    """(feats0, the first chunk's frontend result and features) on the card."""
+    feats0 = pc._first_features(scene.frames, cfg, cuda)
+    carry1 = (feats0, pc.KeyframeState.initial(cuda), torch.eye(4, dtype=torch.float32, device=cuda))
+    _, res, feats = vo_frontend(*carry1, torch.as_tensor(scene.frames[1:C + 1]).to(cuda), scene.intrinsics, cfg.vo,
+                                first_step=1)
+    return feats0, res, feats
+
+
+def test_fused_map_step_replay_is_eager_bit_for_bit(cuda, monkeypatch):
+    """run_point_cloud_fused at the flagship cell's size (PointCloudConfig(),
+    chunks of 32) twice through the graph cache, the first run capturing the
+    map step at its second keyframe: both equal a run in which every region
+    runs eagerly, as with the cache reset before each step, in the map state,
+    the free table, the unpacked descriptors, the ring, the keyframe chain,
+    the observations and the BA runs; the second run replays the map step
+    on at least 99 % of its calls."""
+    scene, cfg = _cells_clip(), pc.PointCloudConfig()
+    carries = []
+    phase2 = pc._fused_phase2_chunk
+
+    def recording(*args, **kwargs):
+        carry, outs = phase2(*args, **kwargs)
+        carries.append(carry)
+        return carry, outs
+
+    monkeypatch.setattr(pc, "_fused_phase2_chunk", recording)
+
+    def run():
+        carries.clear()
+        res = pc.run_point_cloud_fused(scene.frames, scene.intrinsics, cfg, chunk_size=C, device=cuda)
+        return res, carries[-1]
+
+    cached = graphs.run
+    monkeypatch.setattr(graphs, "run", lambda name, fn, tensors, static=(), eager=False: cached(
+        name, fn, tensors, static, eager=True))
+    eager = run()
+    monkeypatch.setattr(graphs, "run", cached)
+    graphs.reset()
+    first = run()
+    with metrics.tracing():
+        metrics.records()
+        second = run()
+        counts = _counts(metrics.records())
+    ref, ref_carry = eager
+    assert ref.ba_runs > 0
+    for got, carry in (first, second):
+        assert got.ba_runs == ref.ba_runs and got.successful_frames == ref.successful_frames
+        for field in ref.map_state._fields:
+            assert torch.equal(getattr(got.map_state, field), getattr(ref.map_state, field)), field
+        for name in ("keyframe_rotations", "keyframe_translations", "keyframe_frame_idx"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(ref, name), err_msg=name)
+        for a, b in zip(got.observations, ref.observations):
+            np.testing.assert_array_equal(a, b)
+        assert carry.kf_count == ref_carry.kf_count
+        for name, a, b in zip(carry._fields, carry, ref_carry):
+            if name not in ("map_state", "kf_count"):
+                assert torch.equal(a, b), name
+    calls = sum(counts.get(f"map.graph_{k}", 0) for k in ("replays", "captures", "eager"))
+    assert calls == len(ref.keyframe_frame_idx) - 1 and counts["map.graph_replays"] >= 0.99 * calls
+
+
+def test_map_step_makes_no_host_sync_eager_captured_or_replayed(cuda):
+    """Three keyframe steps with BA and prune off, after a warm-up step
+    that builds the constants: the first runs the map step eagerly, the
+    second captures it, the third replays it, and none reads the card."""
+    scene = _cells_clip()
+    cfg = dataclasses.replace(pc.PointCloudConfig(), ba_interval=0, prune_interval=0)
+    feats0, res, feats = _first_chunk(scene, cfg, cuda)
+
+    def step(carry, i):
+        return pc._kf_step(carry, feats.xy[i], feats.descriptors[i], feats.mask[i], res.rotations[i],
+                           res.translations[i], scene.intrinsics, cfg)[0]
+
+    carry = pc._fused_carry_init(cfg, feats0, torch.float32)
+    graphs.reset()
+    step(carry, 0)
+    graphs.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            carry = step(carry, i)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert carry.kf_count == 4
+    assert [k[0] for k, g in graphs._CACHE.graphs.items() if g is not None] == ["map.step"]
+
+
+def test_map_step_bits_do_not_depend_on_where_its_inputs_lie(cuda):
+    """The keyframe step hands the region copies at offset 0 of the chunk's
+    rows and the ring's newest pose: the region's outputs on those equal
+    its outputs on the views themselves, bit for bit, on every step of a
+    chunk (the views' offsets differ from step to step)."""
+    scene, cfg = _cells_clip(), pc.PointCloudConfig()
+    feats0, res, feats = _first_chunk(scene, cfg, cuda)
+    carry = pc._fused_carry_init(cfg, feats0, torch.float32)
+    region = functools.partial(pc._map_step, intrinsics=scene.intrinsics, config=cfg)
+    for i in range(C):
+        views = (feats.xy[i], feats.descriptors[i], feats.mask[i], res.rotations[i], res.translations[i],
+                 torch.full((1,), carry.kf_count, dtype=torch.int32, device=cuda), *pc._carry_tensors(carry))
+        fresh = [pc._fresh(t) for t in views]
+        assert i == 0 or any(v.storage_offset() for v in views)
+        assert _same(region(*views), region(*fresh))
+        carry = pc._kf_step(carry, *views[:5], scene.intrinsics, cfg)[0]

@@ -46,6 +46,7 @@ from slamtpu_torch.io.synthetic import render_sequence as t_render
 from slamtpu_torch.mapping.triangulation import triangulate_points
 from slamtpu_torch.pipeline import point_cloud as tpc
 from slamtpu_torch.pipeline.vo import vo_frontend
+from slamtpu_torch.utils import graphs, metrics
 from test_torch_point_cloud import (  # the same clip, draws and bars
     CHUNK,
     FEATURES,
@@ -56,6 +57,7 @@ from test_torch_point_cloud import (  # the same clip, draws and bars
     _jax_config,
     _parallax_deg,
 )
+from test_torch_graphs import _counts, _FakeBackend  # the stubbed capture
 
 torch.set_num_threads(1)
 
@@ -196,6 +198,43 @@ def test_phase2_replays_jax_step_by_step(fused, monkeypatch):
             for name in tpc._FusedStepOut._fields:
                 _assert_same(getattr(tout, name), getattr(jout, name), name, ba_step)
     assert steps == 16 and ba_steps == 3 and flipped <= 8  # measured 3
+
+
+def test_map_step_replays_one_graph_key(fused, monkeypatch):
+    """The fused run (BA every 5 keyframes, two chunks) through a graph
+    cache that takes CPU tensors, with the capture stubbed as in
+    tests/test_torch_graphs.py: the map step asks for one key over every
+    step of both chunks, the keyframe index reaches it as an int32 tensor
+    (not a static or a host int), and the run equals the eager one bit for
+    bit."""
+    calls = []
+
+    class Recording(graphs.GraphCache):
+        def run(self, name, fn, tensors, static=(), eager=False):
+            if name != "map.step":  # the pose stage runs plainly, as on any CPU
+                return fn(*tensors)
+            calls.append((self.key(name, static, tensors), static, tensors[5].clone()))
+            return super().run(name, fn, tensors, static, eager)
+
+    monkeypatch.setattr(graphs, "_CACHE", Recording(backend=_FakeBackend(), device_type="cpu"))
+    scene, ref = fused["scene"], fused["ours"][5]
+    with metrics.tracing():
+        metrics.records()
+        got = _run(scene, 5, fused["draws"])
+        counts = _counts(metrics.records())
+    assert len(calls) == 16 and len({key for key, _, _ in calls}) == 1
+    cfg = convert.point_cloud_config_from_jax(_jax_config(5))
+    assert all(static == (cfg, scene.intrinsics) for _, static, _ in calls)
+    assert all(t.dtype == torch.int32 and t.shape == (1,) for _, _, t in calls)
+    assert [int(t) for _, _, t in calls] == list(range(1, 17))
+    assert [counts[f"map.graph_{k}"] for k in ("eager", "captures", "replays")] == [1, 1, 14]
+    assert got.ba_runs == ref.ba_runs == 3 and got.successful_frames == ref.successful_frames
+    for field in ref.map_state._fields:
+        assert torch.equal(getattr(got.map_state, field), getattr(ref.map_state, field)), field
+    for name in ("keyframe_rotations", "keyframe_translations", "keyframe_frame_idx"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    for a, b in zip(got.observations, ref.observations):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_single_frame_clip():
