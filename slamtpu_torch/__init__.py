@@ -6,8 +6,9 @@ The JAX package `slamtpu/` is the reference; this package mirrors its layout
 same path. It imports torch and numpy only — never jax and nothing of
 `slamtpu`.
 
-The public API is re-exported flat at the package root, the same 15 names
-as the JAX package's root (`OrbDetector`, `PoseEstimator`, `Map`, ...).
+The public API is re-exported flat at the package root: the 15 names of
+the JAX package's root (`OrbDetector`, `PoseEstimator`, `Map`, ...) and
+`DepthAnythingV2`, which the JAX package does not have.
 Each loads its module on first use, so `import slamtpu_torch` costs torch
 and nothing more.
 
@@ -51,6 +52,7 @@ _EXPORTS = {
     "BundleAdjuster": "slamtpu_torch.mapping.bundle_adjustment",
     "Observation": "slamtpu_torch.mapping.bundle_adjustment",
     "MonoDepth2": "slamtpu_torch.depth.monodepth2",
+    "DepthAnythingV2": "slamtpu_torch.depth.depth_anything",
 }
 
 __all__ = sorted(_EXPORTS) + ["resolve_device"]

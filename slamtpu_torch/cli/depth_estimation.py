@@ -5,6 +5,17 @@ Usage:
       --decoder depth.pth [--width 640 --height 192] [--save DIR]
       [--skip-frames N] [--max-frames N] [--random-init] [--device cpu]
       [--fuse-vo cloud.ply] [--rerun] [--rerun-save log.rrd]
+  python -m slamtpu_torch.cli.depth_estimation <input> \
+      --model depth_anything_v2_vitl --checkpoint depth_anything_v2_vitl.pth
+      [--input-size 518] [...]
+
+--model picks the network: MonoDepth2 `mono_640x192` (the default; its
+sigmoid disparity at --width x --height) or Depth Anything V2 Large
+(`depth_anything_v2_vitl`: relative inverse depth at upstream's
+lower-bound size of --input-size, 518x1708 for KITTI's 1241x376; a
+checkpoint in upstream's layout by --checkpoint). Depth Anything's output
+is affine-invariant, so --fuse-vo, which reads metric-like depth, takes
+MonoDepth2 only.
 
 Prints the inference time per frame of each batch and an average-FPS
 summary. On CUDA (the default device) the defaults are batch 64 and bf16;
@@ -27,6 +38,8 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 
+MODELS = ("mono_640x192", "depth_anything_v2_vitl")
+
 
 def depth_fn_for(model, height: int, width: int):
     """One [H, W] frame -> [height, width] f32 depth on the model's device:
@@ -42,10 +55,14 @@ def depth_fn_for(model, height: int, width: int):
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="slamtpu_torch MonoDepth2 depth estimation")
+    parser = argparse.ArgumentParser(description="slamtpu_torch monocular depth estimation")
     parser.add_argument("input")
-    parser.add_argument("--encoder")
-    parser.add_argument("--decoder")
+    parser.add_argument("--model", choices=MODELS, default=MODELS[0], help="the network (default: %(default)s)")
+    parser.add_argument("--encoder", help="MonoDepth2's encoder checkpoint")
+    parser.add_argument("--decoder", help="MonoDepth2's depth decoder checkpoint")
+    parser.add_argument("--checkpoint", help="Depth Anything V2's checkpoint (upstream's state dict layout)")
+    parser.add_argument("--input-size", type=int, default=518,
+                        help="Depth Anything V2's resize: both sides at least this, multiples of 14")
     parser.add_argument("--bf16", action="store_true", default=None,
                         help="run the network in bfloat16 (default on CUDA); --f32 opts out")
     parser.add_argument("--f32", action="store_true", help="force float32 inference (overrides the CUDA bf16 default)")
@@ -68,11 +85,15 @@ def main(argv=None):
     parser.add_argument("--device", help="torch device (default: cuda; raises without one)")
     args = parser.parse_args(argv)
 
-    from ..depth.monodepth2 import MonoDepth2
     from ..io.video import load_frames
 
-    if not args.random_init and not (args.encoder and args.decoder):
-        parser.error("provide --encoder/--decoder checkpoints or --random-init")
+    dav2 = args.model == "depth_anything_v2_vitl"
+    if dav2 and args.fuse_vo:
+        parser.error("--fuse-vo takes MonoDepth2's depth; Depth Anything V2's inverse depth is defined only up to "
+                     "scale and shift, and aligning it to VO is not supported")
+    if not args.random_init and not (args.checkpoint if dav2 else args.encoder and args.decoder):
+        parser.error("provide --checkpoint (Depth Anything V2), --encoder/--decoder checkpoints (MonoDepth2) "
+                     "or --random-init")
     rerun_logger = None
     if args.rerun or args.rerun_save:
         from ..utils.metrics import RerunLogger
@@ -94,14 +115,23 @@ def main(argv=None):
     frames, _, _ = load_frames(args.input, max_frames=args.max_frames, skip_frames=args.skip_frames)
     print(f"Loaded {frames.shape[0]} frames {frames.shape[1]}x{frames.shape[2]}")
 
-    model = MonoDepth2(
-        encoder_path=args.encoder if not args.random_init else None,
-        depth_path=args.decoder if not args.random_init else None,
-        width=args.width,
-        height=args.height,
-        compute_dtype=torch.bfloat16 if args.bf16 else None,
-        device=device,
-    )
+    dtype = torch.bfloat16 if args.bf16 else None
+    if dav2:
+        from ..depth.depth_anything import DepthAnythingV2
+
+        state = None if args.random_init else torch.load(args.checkpoint, map_location="cpu", weights_only=True)
+        model = DepthAnythingV2(state_dict=state, input_size=args.input_size, compute_dtype=dtype, device=device)
+    else:
+        from ..depth.monodepth2 import MonoDepth2
+
+        model = MonoDepth2(
+            encoder_path=args.encoder if not args.random_init else None,
+            depth_path=args.decoder if not args.random_init else None,
+            width=args.width,
+            height=args.height,
+            compute_dtype=dtype,
+            device=device,
+        )
 
     def sync():
         if on_cuda:

@@ -27,7 +27,8 @@ import torch
 from slamtpu.depth.monodepth2 import MonoDepth2 as JMonoDepth2
 from slamtpu_torch.convert import monodepth2_from_flax
 from slamtpu_torch.depth import convert as tconvert
-from slamtpu_torch.depth.monodepth2 import MonoDepth2, _magma_lut
+from slamtpu_torch.depth.monodepth2 import MonoDepth2
+from slamtpu_torch.depth.predictor import _magma_lut
 from slamtpu_torch.models.depth_decoder import DepthDecoder
 from slamtpu_torch.models.resnet import ResNet18Encoder
 

@@ -1,17 +1,17 @@
-"""The spans and the counter of the port's MonoDepth2 (depth/monodepth2.py,
-through utils/metrics.py): each call of `predict_raw`, `predict` or
-`predict_colored` is one root `depth.predict` with `depth.upload`,
-`depth.preprocess`, `depth.encoder`, `depth.decoder` and `depth.normalize`
-or `depth.colorize` inside it, in that order; `depth.frames` counts the
-frames of each call; tracing changes no bit of the disparity; with tracing
-off every depth span is the shared no-op of the port's other spans, one
-flag test."""
+"""The spans and the counter of the port's MonoDepth2 (its host side in
+depth/predictor.py, through utils/metrics.py): each call of
+`predict_raw`, `predict` or `predict_colored` is one root `depth.predict`
+with `depth.upload`, `depth.preprocess`, `depth.encoder`, `depth.decoder`
+and `depth.normalize` or `depth.colorize` inside it, in that order;
+`depth.frames` counts the frames of each call; tracing changes no bit of
+the disparity; with tracing off every depth span is the shared no-op of
+the port's other spans, one flag test."""
 
 import numpy as np
 import pytest
 import torch
 
-from slamtpu_torch.depth import monodepth2
+from slamtpu_torch.depth import predictor
 from slamtpu_torch.depth.monodepth2 import MonoDepth2
 from slamtpu_torch.utils import metrics
 
@@ -69,7 +69,7 @@ def test_tracing_changes_no_bit(model, clip, dtype):
 
 
 def test_off_every_depth_span_is_the_shared_no_op(model, clip, monkeypatch):
-    assert monodepth2.span is metrics.span and monodepth2.count is metrics.count
+    assert predictor.span is metrics.span and predictor.count is metrics.count
     opened = []
 
     def recording(name, root=False):
@@ -77,7 +77,7 @@ def test_off_every_depth_span_is_the_shared_no_op(model, clip, monkeypatch):
         opened.append((name, ctx))
         return ctx
 
-    monkeypatch.setattr(monodepth2, "span", recording)
+    monkeypatch.setattr(predictor, "span", recording)
     assert not metrics._TRACER.on
     for _, call, _, _ in _calls(model, clip):
         call()
