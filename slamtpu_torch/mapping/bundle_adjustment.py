@@ -7,7 +7,9 @@ per-observation [M, 6, 3] coupling blocks; the Schur complement with its
 pose-pose coupling is assembled over landmark chunks (one matmul per chunk)
 or, for long trajectories, over co-observing pose pairs; the reduced pose
 system is solved densely and the points are back-substituted. The LM loop
-is a Python loop that reads one flag per iteration.
+is a Python loop that reads one flag per iteration; the set-up and each
+iteration are regions of utils/graphs.py, which replay as CUDA graphs on
+the card.
 
 Numerics kept from the JAX package: Huber delta 2 px with a consistent IRLS
 weight min(1, delta/|r|) on both sides; damping lam * 10 on the pose and
@@ -29,6 +31,7 @@ not deterministic on CUDA.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +41,7 @@ from .. import resolve_device
 from ..odometry.camera import CameraIntrinsics
 from ..ops.five_point import _solve_pivoted
 from ..ops.lie import hat, so3_exp
+from ..utils import graphs
 from ..utils.metrics import count, span
 
 __all__ = ["Observation", "ObservationBatch", "BaConfig", "BundleAdjuster", "ba_solve", "compute_total_error",
@@ -198,6 +202,264 @@ def _rows_to_mat(blocks, rows: int, cols: int, n_a: int, n_b: int):
     return blocks.permute(0, 2, 1, 3).reshape(n_a * rows, n_b * cols)
 
 
+class _Plan(NamedTuple):
+    """A solve's Python values: all that its regions read besides tensors,
+    and the static part of their graph keys."""
+
+    intrinsics: CameraIntrinsics
+    config: BaConfig
+    fix_first_pose: bool
+    schur_method: str  # "dense" or "coobs"
+    coobs_k: int
+    segments: str  # landmark sums: "gather", "onehot" or "scatter"
+    gather_k_pt: int | None
+    pose_sums: str  # "onehot", "table" or "scatter"
+    pose_width: int  # the per-pose table's width ("table"), else 0
+    landmark_chunk: int
+
+
+def _plan(intrinsics, config, fix_first_pose, dev, n_poses, n_points, m, landmark_chunk, segment_method,
+          schur_method, coobs_k, gather_k_pt, busiest_pose) -> _Plan:
+    """Resolve a solve's segment sums and Schur assembly (see ba_solve);
+    busiest_pose() gives the observations of the busiest pose, asked for
+    only where a per-pose table is needed."""
+    if schur_method not in ("dense", "coobs"):
+        raise ValueError(f"unknown schur_method {schur_method!r}")
+    if segment_method == "auto":
+        segment_method = "scatter" if dev.type != "cuda" else "onehot" if gather_k_pt is None else "gather"
+    elif segment_method not in ("onehot", "scatter", "gather"):
+        raise ValueError(f"unknown segment_method {segment_method!r}")
+    if segment_method == "gather" and (gather_k_pt is None or gather_k_pt < 1):
+        raise ValueError("segment_method='gather' requires gather_k_pt >= 1")
+    if segment_method == "onehot" and (n_points * m > ONEHOT_CAP or n_poses * m > ONEHOT_CAP):
+        segment_method = "scatter"
+    pose_sums, pose_width = "scatter", 0
+    if segment_method == "onehot" or (segment_method == "gather" and n_poses * m <= ONEHOT_CAP):
+        pose_sums = "onehot"
+    elif segment_method == "gather":
+        # Past the cap: a per-pose observer table, as wide as the busiest pose.
+        pose_sums, pose_width = "table", busiest_pose()
+    return _Plan(intrinsics, config, fix_first_pose, schur_method, coobs_k, segment_method,
+                 gather_k_pt if segment_method == "gather" else None, pose_sums, pose_width, landmark_chunk)
+
+
+def _lm_setup(rot, trans, pts, kf_idx, pt_idx, pixels, mask, *, plan: _Plan):
+    """Region `ba.setup` of a solve: its tables and the start error.
+    Returns (landmark table, pose table, pose one-hot, landmark one-hot,
+    eye3, eye6, pose indices, error), None where the plan sums otherwise."""
+    dtype, dev = rot.dtype, rot.device
+    n_poses, n_points = rot.shape[0], pts.shape[0]
+    tbl_pt = tbl_pose = oh_pose = oh_pt = None
+    if plan.segments == "gather":
+        tbl_pt = _observer_table(pt_idx, n_points, plan.gather_k_pt, mask)
+    if plan.pose_sums == "onehot":
+        oh_pose = (kf_idx[None, :] == torch.arange(n_poses, device=dev)[:, None]).to(dtype)
+    elif plan.pose_sums == "table":
+        tbl_pose = _observer_table(kf_idx, n_poses, plan.pose_width, torch.ones_like(mask))
+    if plan.segments == "onehot":
+        oh_pt = (pt_idx[None, :] == torch.arange(n_points, device=dev)[:, None]).to(dtype)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    diag = torch.arange(n_poses, device=dev)
+    err = compute_total_error(plan.intrinsics, rot, trans, pts, ObservationBatch(kf_idx, pt_idx, pixels, mask),
+                              plan.config.huber_delta)
+    return tbl_pt, tbl_pose, oh_pose, oh_pt, eye3, eye6, diag, err
+
+
+def _schur_offdiag(plan: _Plan, obs, u_pl, h_ll_inv, w, coobs_rank, tbl_pt, oh_pose, oh_pt, diag, n_poses):
+    """sum over landmarks of W Hll^-1 W^T, [P, P, 6, 6]."""
+    dtype, dev = u_pl.dtype, u_pl.device
+    n_points, m = h_ll_inv.shape[0], obs.mask.shape[0]
+    if plan.schur_method == "coobs":
+        # Scatter each live observation's coupling block into its
+        # landmark's observer slot, form the K^2 per-landmark pair
+        # products, and sum them onto (i1, i2) pose-pair buckets.
+        coobs_k = plan.coobs_k
+        pt_safe = torch.where(w > 0, obs.pt_idx, n_points)
+        rank = torch.clamp(coobs_rank, 0, coobs_k - 1)
+        wjk = torch.zeros((n_points + 1, coobs_k, 6, 3), dtype=dtype, device=dev)
+        wjk[pt_safe, rank] = u_pl
+        wjk = wjk[:n_points]
+        pjk = torch.full((n_points + 1, coobs_k), n_poses, dtype=torch.int64, device=dev)
+        pjk[pt_safe, rank] = obs.kf_idx
+        pjk = pjk[:n_points]
+        tjk = torch.einsum("lkab,lbc->lkac", wjk, h_ll_inv)
+        n_buckets = n_poses * n_poses
+        s_flat = torch.zeros((n_buckets + 1, 36), dtype=dtype, device=dev)
+        for k1 in range(coobs_k):
+            c = torch.einsum("lab,lkcb->lkac", tjk[:, k1], wjk)  # [L, K, 6, 6]
+            sid = torch.where((pjk[:, k1, None] < n_poses) & (pjk < n_poses),
+                              pjk[:, k1, None] * n_poses + pjk, n_buckets)
+            s_flat.index_add_(0, sid.reshape(-1), c.reshape(-1, 36))
+        return s_flat[:-1].reshape(n_poses, n_poses, 6, 6)
+    lc = min(n_points, plan.landmark_chunk)
+    n_chunks = -(-n_points // lc)
+    if plan.segments == "onehot" and n_chunks == 1:
+        stacked = oh_pose[:, :, None] * u_pl.reshape(m, 18)[None]  # [P, M, 18]
+        w_full = torch.einsum("pmk,lm->plk", stacked, oh_pt).reshape(n_poses, n_points, 6, 3)
+        t_full = torch.einsum("pjab,jbc->pjac", w_full, h_ll_inv)
+        s = _rows_to_mat(t_full, 6, 3, n_poses, n_points) @ _rows_to_mat(w_full, 6, 3, n_poses, n_points).T
+        return s.reshape(n_poses, 6, n_poses, 6).permute(0, 2, 1, 3)
+    # Landmark chunks: each assembles a small dense W_c [P, lc, 6, 3] and
+    # adds one [P*6, lc*3] @ [lc*3, P*6] product.
+    use_gather = plan.segments == "gather"
+    l_pad = n_chunks * lc
+    h_ll_inv_pad = torch.zeros((l_pad, 3, 3), dtype=dtype, device=dev)
+    h_ll_inv_pad[:n_points] = h_ll_inv
+    if use_gather:
+        u_pad = torch.cat([u_pl, torch.zeros_like(u_pl[:1])], dim=0)
+        kf_pad = torch.cat([obs.kf_idx, torch.zeros_like(obs.kf_idx[:1])], dim=0)
+        tbl_pad = torch.full((l_pad, plan.gather_k_pt), m, dtype=torch.int64, device=dev)
+        tbl_pad[:n_points] = tbl_pt
+    s_acc = torch.zeros((n_poses, n_poses, 6, 6), dtype=dtype, device=dev)
+    for c in range(n_chunks):
+        base = c * lc
+        if use_gather:
+            tbl_c = tbl_pad[base : base + lc]
+            # Padding cells point at a zero block (and at pose 0).
+            ohp = (kf_pad[tbl_c][..., None] == diag).to(dtype)  # [lc, K, P]
+            w_c = torch.einsum("lkp,lkab->plab", ohp, u_pad[tbl_c])
+        else:
+            local = obs.pt_idx - base
+            safe = torch.where((local >= 0) & (local < lc), local, lc)  # out of chunk -> dropped row
+            w_c = torch.zeros((n_poses, lc + 1, 6, 3), dtype=dtype, device=dev)
+            w_c.index_put_((obs.kf_idx, safe), u_pl, accumulate=True)
+            w_c = w_c[:, :lc]
+        t_c = torch.einsum("pjab,jbc->pjac", w_c, h_ll_inv_pad[base : base + lc])
+        s_c = _rows_to_mat(t_c, 6, 3, n_poses, lc) @ _rows_to_mat(w_c, 6, 3, n_poses, lc).T
+        s_acc = s_acc + s_c.reshape(n_poses, 6, n_poses, 6).permute(0, 2, 1, 3)
+    return s_acc
+
+
+def _lm_step(rot, trans, pts, err, kf_idx, pt_idx, pixels, mask, free, coobs_rank, tbl_pt, tbl_pose, oh_pose, oh_pt,
+             eye3, eye6, diag, *, plan: _Plan):
+    """Region `ba.step`: one LM iteration from (rot, trans, pts) at error
+    err, the divergent step rolled back. Returns (rot, trans, pts, err,
+    stop), stop the 0-d bool "diverged or converged"."""
+    intrinsics, config = plan.intrinsics, plan.config
+    dtype, dev = rot.dtype, rot.device
+    n_poses, n_points, m = rot.shape[0], pts.shape[0], mask.shape[0]
+    obs = ObservationBatch(kf_idx, pt_idx, pixels, mask)
+    delta = config.huber_delta
+    lam_damp = config.lam * 10.0
+
+    if plan.pose_sums == "onehot":
+        def seg_pose(v):
+            return (oh_pose @ v.reshape(m, -1)).reshape(n_poses, *v.shape[1:])
+    elif plan.pose_sums == "table":
+        seg_pose = _gather_sum(tbl_pose)
+    else:
+        def seg_pose(v):
+            return torch.zeros((n_poses, *v.shape[1:]), dtype=v.dtype, device=dev).index_add_(0, obs.kf_idx, v)
+
+    if plan.segments == "gather":
+        seg_pt = _gather_sum(tbl_pt)
+    elif plan.segments == "onehot":
+        def seg_pt(v):
+            return (oh_pt @ v.reshape(m, -1)).reshape(n_points, *v.shape[1:])
+    else:
+        def seg_pt(v):
+            return torch.zeros((n_points, *v.shape[1:]), dtype=v.dtype, device=dev).index_add_(0, obs.pt_idx, v)
+
+    p_cam, z_safe, residual, valid = _project_and_residual(intrinsics, rot, trans, pts, obs)
+    r_norm = torch.linalg.vector_norm(residual, dim=-1)
+    w = torch.where(r_norm > delta, delta / torch.clamp(r_norm, min=1e-12), torch.ones_like(r_norm))
+    w = torch.where(valid, w, torch.zeros_like(w))
+
+    # Jacobian-only depth floor: a landmark grazing z > 1e-6 would give
+    # fx/z ~ 1e9, whose squares and fourth powers overflow f32 in the
+    # normal equations; residuals and the error keep the exact depth.
+    z = torch.clamp(z_safe, min=1e-3)
+    z2 = z * z
+    zero = torch.zeros_like(z)
+    j_proj = torch.stack([
+        torch.stack([intrinsics.fx / z, zero, -intrinsics.fx * p_cam[:, 0] / z2], dim=-1),
+        torch.stack([zero, intrinsics.fy / z, -intrinsics.fy * p_cam[:, 1] / z2], dim=-1),
+    ], dim=-2)  # [M, 2, 3]
+    rot_m = rot[obs.kf_idx]
+    rx = (rot_m @ pts[obs.pt_idx][..., None])[..., 0]  # R X, without t
+    j_pose = torch.cat([-(j_proj @ hat(rx)), j_proj], dim=-1)  # [M, 2, 6]
+    j_point = j_proj @ rot_m  # [M, 2, 3]
+
+    wj_pose = j_pose * w[:, None, None]
+    wj_point = j_point * w[:, None, None]
+    h_pp = seg_pose(wj_pose.transpose(1, 2) @ j_pose)  # [P, 6, 6]
+    h_ll = seg_pt(wj_point.transpose(1, 2) @ j_point)  # [L, 3, 3]
+    b_p = -seg_pose((wj_pose.transpose(1, 2) @ residual[..., None])[..., 0])  # [P, 6]
+    b_l = -seg_pt((wj_point.transpose(1, 2) @ residual[..., None])[..., 0])  # [L, 3]
+    u_pl = wj_pose.transpose(1, 2) @ j_point  # [M, 6, 3] per-observation coupling
+
+    h_pp = torch.where(free[:, None, None], h_pp, torch.zeros_like(h_pp))
+    b_p = torch.where(free[:, None], b_p, torch.zeros_like(b_p))
+    u_pl = u_pl * free[obs.kf_idx][:, None, None].to(dtype)
+
+    # Damping the landmark diagonal too keeps every block invertible (a
+    # landmark seen once has a rank-2 H_ll).
+    h_ll_inv = _inv3x3(h_ll + lam_damp * eye3)
+
+    s = -_schur_offdiag(plan, obs, u_pl, h_ll_inv, w, coobs_rank, tbl_pt, oh_pose, oh_pt, diag, n_poses)
+    s[diag, diag] += h_pp
+    hinv_bl = (h_ll_inv @ b_l[..., None])[..., 0]  # [L, 3]
+    b_red = b_p - seg_pose((u_pl @ hinv_bl[obs.pt_idx][..., None])[..., 0])  # [P, 6]
+
+    if plan.fix_first_pose:
+        s[0, :] = 0.0
+        s[:, 0] = 0.0
+        s[0, 0] = eye6
+        b_red[0] = 0.0
+    frozen = ~free
+    s = torch.where(frozen[:, None, None, None] | frozen[None, :, None, None], torch.zeros_like(s), s)
+    s[diag, diag] += torch.where(frozen[:, None, None], eye6, torch.zeros_like(eye6))
+    b_red = torch.where(frozen[:, None], torch.zeros_like(b_red), b_red)
+    s[diag, diag] += lam_damp * eye6
+
+    s_mat = s.permute(0, 2, 1, 3).reshape(n_poses * 6, n_poses * 6)
+    if n_poses * 6 <= 64:
+        delta_p = _solve_pivoted(s_mat, b_red.reshape(-1, 1))[:, 0].reshape(n_poses, 6)
+    else:
+        # solve_ex does not raise on a singular system: like the JAX
+        # package's solve it gives a non-finite step, which the error
+        # check below rolls back.
+        delta_p = torch.linalg.solve_ex(s_mat, b_red.reshape(-1))[0].reshape(n_poses, 6)
+
+    new_rot = so3_exp(delta_p[:, :3]) @ rot
+    new_trans = trans + delta_p[:, 3:]
+    wtd = seg_pt((u_pl.transpose(1, 2) @ delta_p[obs.kf_idx][..., None])[..., 0])  # [L, 3]
+    delta_x = (h_ll_inv @ (b_l - wtd)[..., None])[..., 0]
+    observed = seg_pt(w) > 0  # points with no (free) observation stay put
+    new_pts = pts + torch.where(observed[:, None], delta_x, torch.zeros_like(delta_x))
+
+    new_err = compute_total_error(intrinsics, new_rot, new_trans, new_pts, obs, delta)
+    # NaN-safe: a non-finite error counts as divergence and is rolled back.
+    diverged = ~(new_err <= err * 1.5)
+    converged = torch.abs(err - new_err) < config.min_error_change
+    keep = ~diverged
+    return (torch.where(keep, new_rot, rot), torch.where(keep, new_trans, trans), torch.where(keep, new_pts, pts),
+            torch.where(keep, new_err, err), diverged | converged)
+
+
+def _lm(plan: _Plan, rot, trans, pts, err, problem):
+    """The LM loop: region `ba.step` an iteration (problem: its inputs after
+    the iterates) and one host read of its stop flag. A reduced system
+    past 64 rows (torch.linalg.solve_ex) runs eagerly. Returns (rot, trans,
+    pts, err, iterations)."""
+    step = functools.partial(_lm_step, plan=plan)
+    eager = rot.shape[0] * 6 > 64
+    iters = 0
+    while iters < plan.config.max_iterations:
+        with span("ba.iteration"):
+            rot, trans, pts, err, stop = graphs.run("ba.step", step, (rot, trans, pts, err, *problem), static=plan,
+                                                    eager=eager)
+            iters += 1
+            with span("ba.stop.read"):
+                stop = bool(stop)
+        if stop:
+            break
+    count("ba.solves")
+    count("ba.lm_iterations", iters)
+    return rot, trans, pts, err, iters
+
+
 def ba_solve(intrinsics: CameraIntrinsics, rotations, translations, points, obs: ObservationBatch,
              config: BaConfig = BaConfig(), fix_first_pose: bool = True, pose_mask=None,
              landmark_chunk: int = 2048, segment_method: str = "auto", schur_method: str = "dense",
@@ -225,6 +487,9 @@ def ba_solve(intrinsics: CameraIntrinsics, rotations, translations, points, obs:
       matmul up to ONEHOT_CAP elements and a per-pose table above it.
     All float inputs are promoted to the rotations' dtype (f64 on the CPU
     for reference-grade results; f32 on the card).
+
+    The set-up and each iteration are graph regions (`ba.setup`, `ba.step`
+    of utils/graphs.py): on the card they replay once their key recurs.
     """
     rotations = torch.as_tensor(rotations)
     dtype, dev = rotations.dtype, rotations.device
@@ -246,220 +511,21 @@ def ba_solve(intrinsics: CameraIntrinsics, rotations, translations, points, obs:
         coobs_rank = torch.empty_like(rank_sorted)
         coobs_rank[order] = rank_sorted
         obs = obs._replace(mask=obs.mask & (coobs_rank < coobs_k))
-    elif schur_method != "dense":
-        raise ValueError(f"unknown schur_method {schur_method!r}")
 
     free = (torch.ones((n_poses,), dtype=torch.bool, device=dev) if pose_mask is None
             else torch.as_tensor(pose_mask).to(device=dev, dtype=torch.bool))
-    delta = config.huber_delta
-    lam_damp = config.lam * 10.0
 
-    if segment_method == "auto" and dev.type == "cuda":
-        if gather_k_pt is None:
-            counts = torch.bincount(obs.pt_idx[obs.mask], minlength=n_points)
-            k = max(int(counts.max()) if counts.numel() else 1, 1)
-            if k <= _GATHER_MAX_K:
-                gather_k_pt = k
-        if gather_k_pt is not None:
-            segment_method = "gather"
-    if segment_method == "auto":
-        want_onehot = dev.type == "cuda"
-    elif segment_method in ("onehot", "scatter", "gather"):
-        want_onehot = segment_method == "onehot"
-    else:
-        raise ValueError(f"unknown segment_method {segment_method!r}")
-    use_gather = segment_method == "gather"
-    if use_gather:
-        if gather_k_pt is None or gather_k_pt < 1:
-            raise ValueError("segment_method='gather' requires gather_k_pt >= 1")
-        tbl_pt = _observer_table(obs.pt_idx, n_points, gather_k_pt, obs.mask)
-    use_onehot = (not use_gather and want_onehot and n_points * m <= ONEHOT_CAP
-                  and n_poses * m <= ONEHOT_CAP)
-
-    if (use_onehot or use_gather) and n_poses * m <= ONEHOT_CAP:
-        oh_pose = (obs.kf_idx[None, :] == torch.arange(n_poses, device=dev)[:, None]).to(dtype)
-
-        def seg_pose(v):
-            return (oh_pose @ v.reshape(m, -1)).reshape(n_poses, *v.shape[1:])
-    elif use_gather:
-        # Past the cap: a per-pose observer table, as wide as the busiest pose.
-        width = max(int(torch.bincount(obs.kf_idx, minlength=n_poses).max()), 1)
-        seg_pose = _gather_sum(_observer_table(obs.kf_idx, n_poses, width, torch.ones_like(obs.mask)))
-    else:
-        def seg_pose(v):
-            return torch.zeros((n_poses, *v.shape[1:]), dtype=v.dtype, device=dev).index_add_(0, obs.kf_idx, v)
-
-    if use_gather:
-        seg_pt = _gather_sum(tbl_pt)
-    elif use_onehot:
-        oh_pt = (obs.pt_idx[None, :] == torch.arange(n_points, device=dev)[:, None]).to(dtype)
-
-        def seg_pt(v):
-            return (oh_pt @ v.reshape(m, -1)).reshape(n_points, *v.shape[1:])
-    else:
-        def seg_pt(v):
-            return torch.zeros((n_points, *v.shape[1:]), dtype=v.dtype, device=dev).index_add_(0, obs.pt_idx, v)
-
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    diag = torch.arange(n_poses, device=dev)
-    lc = min(n_points, landmark_chunk)
-    n_chunks = -(-n_points // lc)
-
-    def schur_offdiag(u_pl, h_ll_inv, w):
-        """sum over landmarks of W Hll^-1 W^T, [P, P, 6, 6]."""
-        if schur_method == "coobs":
-            # Scatter each live observation's coupling block into its
-            # landmark's observer slot, form the K^2 per-landmark pair
-            # products, and sum them onto (i1, i2) pose-pair buckets.
-            pt_safe = torch.where(w > 0, obs.pt_idx, n_points)
-            rank = torch.clamp(coobs_rank, 0, coobs_k - 1)
-            wjk = torch.zeros((n_points + 1, coobs_k, 6, 3), dtype=dtype, device=dev)
-            wjk[pt_safe, rank] = u_pl
-            wjk = wjk[:n_points]
-            pjk = torch.full((n_points + 1, coobs_k), n_poses, dtype=torch.int64, device=dev)
-            pjk[pt_safe, rank] = obs.kf_idx
-            pjk = pjk[:n_points]
-            tjk = torch.einsum("lkab,lbc->lkac", wjk, h_ll_inv)
-            n_buckets = n_poses * n_poses
-            s_flat = torch.zeros((n_buckets + 1, 36), dtype=dtype, device=dev)
-            for k1 in range(coobs_k):
-                c = torch.einsum("lab,lkcb->lkac", tjk[:, k1], wjk)  # [L, K, 6, 6]
-                sid = torch.where((pjk[:, k1, None] < n_poses) & (pjk < n_poses),
-                                  pjk[:, k1, None] * n_poses + pjk, n_buckets)
-                s_flat.index_add_(0, sid.reshape(-1), c.reshape(-1, 36))
-            return s_flat[:-1].reshape(n_poses, n_poses, 6, 6)
-        if use_onehot and n_chunks == 1:
-            stacked = oh_pose[:, :, None] * u_pl.reshape(m, 18)[None]  # [P, M, 18]
-            w_full = torch.einsum("pmk,lm->plk", stacked, oh_pt).reshape(n_poses, n_points, 6, 3)
-            t_full = torch.einsum("pjab,jbc->pjac", w_full, h_ll_inv)
-            s = _rows_to_mat(t_full, 6, 3, n_poses, n_points) @ _rows_to_mat(w_full, 6, 3, n_poses, n_points).T
-            return s.reshape(n_poses, 6, n_poses, 6).permute(0, 2, 1, 3)
-        # Landmark chunks: each assembles a small dense W_c [P, lc, 6, 3] and
-        # adds one [P*6, lc*3] @ [lc*3, P*6] product.
-        l_pad = n_chunks * lc
-        h_ll_inv_pad = torch.zeros((l_pad, 3, 3), dtype=dtype, device=dev)
-        h_ll_inv_pad[:n_points] = h_ll_inv
-        if use_gather:
-            u_pad = torch.cat([u_pl, torch.zeros_like(u_pl[:1])], dim=0)
-            kf_pad = torch.cat([obs.kf_idx, torch.zeros_like(obs.kf_idx[:1])], dim=0)
-            tbl_pad = torch.full((l_pad, gather_k_pt), m, dtype=torch.int64, device=dev)
-            tbl_pad[:n_points] = tbl_pt
-        s_acc = torch.zeros((n_poses, n_poses, 6, 6), dtype=dtype, device=dev)
-        for c in range(n_chunks):
-            base = c * lc
-            if use_gather:
-                tbl_c = tbl_pad[base : base + lc]
-                # Padding cells point at a zero block (and at pose 0).
-                ohp = (kf_pad[tbl_c][..., None] == diag).to(dtype)  # [lc, K, P]
-                w_c = torch.einsum("lkp,lkab->plab", ohp, u_pad[tbl_c])
-            else:
-                local = obs.pt_idx - base
-                safe = torch.where((local >= 0) & (local < lc), local, lc)  # out of chunk -> dropped row
-                w_c = torch.zeros((n_poses, lc + 1, 6, 3), dtype=dtype, device=dev)
-                w_c.index_put_((obs.kf_idx, safe), u_pl, accumulate=True)
-                w_c = w_c[:, :lc]
-            t_c = torch.einsum("pjab,jbc->pjac", w_c, h_ll_inv_pad[base : base + lc])
-            s_c = _rows_to_mat(t_c, 6, 3, n_poses, lc) @ _rows_to_mat(w_c, 6, 3, n_poses, lc).T
-            s_acc = s_acc + s_c.reshape(n_poses, 6, n_poses, 6).permute(0, 2, 1, 3)
-        return s_acc
-
-    def one_iteration(rot, trans, pts):
-        p_cam, z_safe, residual, valid = _project_and_residual(intrinsics, rot, trans, pts, obs)
-        r_norm = torch.linalg.vector_norm(residual, dim=-1)
-        w = torch.where(r_norm > delta, delta / torch.clamp(r_norm, min=1e-12), torch.ones_like(r_norm))
-        w = torch.where(valid, w, torch.zeros_like(w))
-
-        # Jacobian-only depth floor: a landmark grazing z > 1e-6 would give
-        # fx/z ~ 1e9, whose squares and fourth powers overflow f32 in the
-        # normal equations; residuals and the error keep the exact depth.
-        z = torch.clamp(z_safe, min=1e-3)
-        z2 = z * z
-        zero = torch.zeros_like(z)
-        j_proj = torch.stack([
-            torch.stack([intrinsics.fx / z, zero, -intrinsics.fx * p_cam[:, 0] / z2], dim=-1),
-            torch.stack([zero, intrinsics.fy / z, -intrinsics.fy * p_cam[:, 1] / z2], dim=-1),
-        ], dim=-2)  # [M, 2, 3]
-        rot_m = rot[obs.kf_idx]
-        rx = (rot_m @ pts[obs.pt_idx][..., None])[..., 0]  # R X, without t
-        j_pose = torch.cat([-(j_proj @ hat(rx)), j_proj], dim=-1)  # [M, 2, 6]
-        j_point = j_proj @ rot_m  # [M, 2, 3]
-
-        wj_pose = j_pose * w[:, None, None]
-        wj_point = j_point * w[:, None, None]
-        h_pp = seg_pose(wj_pose.transpose(1, 2) @ j_pose)  # [P, 6, 6]
-        h_ll = seg_pt(wj_point.transpose(1, 2) @ j_point)  # [L, 3, 3]
-        b_p = -seg_pose((wj_pose.transpose(1, 2) @ residual[..., None])[..., 0])  # [P, 6]
-        b_l = -seg_pt((wj_point.transpose(1, 2) @ residual[..., None])[..., 0])  # [L, 3]
-        u_pl = wj_pose.transpose(1, 2) @ j_point  # [M, 6, 3] per-observation coupling
-
-        h_pp = torch.where(free[:, None, None], h_pp, torch.zeros_like(h_pp))
-        b_p = torch.where(free[:, None], b_p, torch.zeros_like(b_p))
-        u_pl = u_pl * free[obs.kf_idx][:, None, None].to(dtype)
-
-        # Damping the landmark diagonal too keeps every block invertible (a
-        # landmark seen once has a rank-2 H_ll).
-        h_ll_inv = _inv3x3(h_ll + lam_damp * eye3)
-
-        s = -schur_offdiag(u_pl, h_ll_inv, w)
-        s[diag, diag] += h_pp
-        hinv_bl = (h_ll_inv @ b_l[..., None])[..., 0]  # [L, 3]
-        b_red = b_p - seg_pose((u_pl @ hinv_bl[obs.pt_idx][..., None])[..., 0])  # [P, 6]
-
-        if fix_first_pose:
-            s[0, :] = 0.0
-            s[:, 0] = 0.0
-            s[0, 0] = eye6
-            b_red[0] = 0.0
-        frozen = ~free
-        s = torch.where(frozen[:, None, None, None] | frozen[None, :, None, None], torch.zeros_like(s), s)
-        s[diag, diag] += torch.where(frozen[:, None, None], eye6, torch.zeros_like(eye6))
-        b_red = torch.where(frozen[:, None], torch.zeros_like(b_red), b_red)
-        s[diag, diag] += lam_damp * eye6
-
-        s_mat = s.permute(0, 2, 1, 3).reshape(n_poses * 6, n_poses * 6)
-        if n_poses * 6 <= 64:
-            delta_p = _solve_pivoted(s_mat, b_red.reshape(-1, 1))[:, 0].reshape(n_poses, 6)
-        else:
-            # solve_ex does not raise on a singular system: like the JAX
-            # package's solve it gives a non-finite step, which the error
-            # check below rolls back.
-            delta_p = torch.linalg.solve_ex(s_mat, b_red.reshape(-1))[0].reshape(n_poses, 6)
-
-        new_rot = so3_exp(delta_p[:, :3]) @ rot
-        new_trans = trans + delta_p[:, 3:]
-        wtd = seg_pt((u_pl.transpose(1, 2) @ delta_p[obs.kf_idx][..., None])[..., 0])  # [L, 3]
-        delta_x = (h_ll_inv @ (b_l - wtd)[..., None])[..., 0]
-        observed = seg_pt(w) > 0  # points with no (free) observation stay put
-        new_pts = pts + torch.where(observed[:, None], delta_x, torch.zeros_like(delta_x))
-        return new_rot, new_trans, new_pts
-
-    def error_of(rot, trans, pts):
-        return compute_total_error(intrinsics, rot, trans, pts, obs, delta)
-
-    rot, trans, pts = rotations, translations, points
-    err = error_of(rot, trans, pts)
-    iters = 0
-    while iters < config.max_iterations:
-        with span("ba.iteration"):
-            new_rot, new_trans, new_pts = one_iteration(rot, trans, pts)
-            new_err = error_of(new_rot, new_trans, new_pts)
-            # NaN-safe: a non-finite error counts as divergence and is rolled back.
-            diverged = ~(new_err <= err * 1.5)
-            converged = torch.abs(err - new_err) < config.min_error_change
-            keep = ~diverged
-            rot = torch.where(keep, new_rot, rot)
-            trans = torch.where(keep, new_trans, trans)
-            pts = torch.where(keep, new_pts, pts)
-            err = torch.where(keep, new_err, err)
-            iters += 1
-            with span("ba.stop.read"):
-                stop = bool(diverged | converged)
-        if stop:
-            break
-    count("ba.solves")
-    count("ba.lm_iterations", iters)
-    return rot, trans, pts, err, iters
+    if segment_method == "auto" and dev.type == "cuda" and gather_k_pt is None:
+        counts = torch.bincount(obs.pt_idx[obs.mask], minlength=n_points)
+        k = max(int(counts.max()) if counts.numel() else 1, 1)
+        if k <= _GATHER_MAX_K:
+            gather_k_pt = k
+    plan = _plan(intrinsics, config, fix_first_pose, dev, n_poses, n_points, m, landmark_chunk, segment_method,
+                 schur_method, coobs_k, gather_k_pt,
+                 lambda: max(int(torch.bincount(obs.kf_idx, minlength=n_poses).max()), 1))
+    *tables, err = graphs.run("ba.setup", functools.partial(_lm_setup, plan=plan),
+                              (rotations, translations, points, *obs), static=plan, eager=n_poses * 6 > 64)
+    return _lm(plan, rotations, translations, points, err, (*obs, free, coobs_rank, *tables))
 
 
 class BundleAdjuster:

@@ -39,7 +39,7 @@ import torch
 from .. import resolve_device
 from ..feature.detector import OrbFeatures, detect_and_compute
 from ..feature.matcher import FeatureMatcher
-from ..mapping.bundle_adjustment import BaConfig, ObservationBatch, ba_solve, compute_total_error
+from ..mapping.bundle_adjustment import BaConfig, ObservationBatch, _lm, _lm_setup, _plan, ba_solve, compute_total_error
 from ..mapping.keyframe import KeyframeConfig, KeyframeState
 from ..mapping.map import (
     MapState,
@@ -627,6 +627,38 @@ def _fused_carry_init(config: PointCloudConfig, feats0: OrbFeatures, pose_dtype)
     )
 
 
+def _window_problem(positions, valid, ids, ring_rot, ring_trans, ring_kf, ring_slots, ring_ids, ring_px, ring_mask,
+                    *, plan, config: PointCloudConfig):
+    """Region `ba.setup` of the fused runner: the ring's compact problem and
+    the solve's tables. Returns (landmarks, kf_idx, pt_idx, pixels, mask,
+    free poses, write-back slots (capacity = dropped), *_lm_setup's)."""
+    w, o_cap = config.ba_window, config.max_obs_per_kf
+    live = ring_kf >= 0
+    # Drop observations whose slot was pruned or recycled since recording.
+    obs_ok = ring_mask & live[:, None] & valid[ring_slots] & (ids[ring_slots] == ring_ids)
+    l_max = min(config.max_ba_landmarks, w * o_cap)
+    big = valid.shape[0]
+    flat_slots = ring_slots.reshape(-1)
+    flat_ok = obs_ok.reshape(-1)
+    skeys = torch.sort(torch.where(flat_ok, flat_slots, big)).values
+    firsts = torch.cat([torch.ones((1,), dtype=torch.bool, device=skeys.device), skeys[1:] != skeys[:-1]])
+    uniq = torch.sort(torch.where(firsts, skeys, big)).values[:l_max]
+    l_mask = uniq < big
+    pt_c = torch.clamp(torch.searchsorted(uniq, flat_slots), 0, l_max - 1)
+    ok_c = flat_ok & (uniq[pt_c] == flat_slots)
+    # Gauge and scale anchor: the window's two oldest live poses are frozen.
+    live_rank = torch.cumsum(live, dim=0, dtype=torch.int32) - 1
+    pose_free = live & (live_rank >= 2)
+    kf_of_obs = torch.arange(w, device=ring_kf.device)[:, None].expand(w, o_cap).reshape(-1)
+    pts = positions[torch.where(l_mask, uniq, 0)].to(ring_rot.dtype)
+    px = ring_px.reshape(-1, 2).to(ring_rot.dtype)
+    # Padding rows are routed to a dropped scratch row, so that slot 0 is
+    # written once, with its optimised value.
+    write_slots = torch.where(l_mask, uniq, big)
+    return (pts, kf_of_obs, pt_c, px, ok_c, pose_free, write_slots,
+            *_lm_setup(ring_rot, ring_trans, pts, kf_of_obs, pt_c, px, ok_c, plan=plan))
+
+
 def _fused_window_ba(state: MapState, ring_rot, ring_trans, ring_kf, ring_slots, ring_ids, ring_px, ring_mask,
                      intrinsics, config: PointCloudConfig):
     """Windowed BA over the ring's poses, in the ring's dtype. Returns (ring
@@ -639,31 +671,25 @@ def _fused_window_ba(state: MapState, ring_rot, ring_trans, ring_kf, ring_slots,
     bound (the window size) holds by construction: a ring row's slots are
     compacted from a per-slot mask, so a landmark appears at most once per
     keyframe; the host loop's check of that is dropped here, as it would
-    read the device.
+    read the device. The problem's set-up and each LM iteration are the
+    regions `ba.setup` and `ba.step` (utils/graphs.py), one key each for
+    every solve of a run; the segment sums are those of _ba_window_solve.
     """
     with span("map.window_ba"):
         w, o_cap = config.ba_window, config.max_obs_per_kf
-        live = ring_kf >= 0
-        # Drop observations whose slot was pruned or recycled since recording.
-        obs_ok = ring_mask & live[:, None] & state.valid[ring_slots] & (state.ids[ring_slots] == ring_ids)
-        l_max = min(config.max_ba_landmarks, w * o_cap)
-        big = state.capacity
-        flat_slots = ring_slots.reshape(-1)
-        flat_ok = obs_ok.reshape(-1)
-        skeys = torch.sort(torch.where(flat_ok, flat_slots, big)).values
-        firsts = torch.cat([torch.ones((1,), dtype=torch.bool, device=skeys.device), skeys[1:] != skeys[:-1]])
-        uniq = torch.sort(torch.where(firsts, skeys, big)).values[:l_max]
-        l_mask = uniq < big
-        pt_c = torch.clamp(torch.searchsorted(uniq, flat_slots), 0, l_max - 1)
-        ok_c = flat_ok & (uniq[pt_c] == flat_slots)
-        # Gauge and scale anchor: the window's two oldest live poses are frozen.
-        live_rank = torch.cumsum(live, dim=0, dtype=torch.int32) - 1
-        pose_free = live & (live_rank >= 2)
-        kf_of_obs = torch.arange(w, device=ring_kf.device)[:, None].expand(w, o_cap).reshape(-1)
-        new_rot, new_trans, positions = _ba_window_solve(
-            state.positions, ring_rot, ring_trans, pose_free, torch.where(l_mask, uniq, 0), l_mask, kf_of_obs, pt_c,
-            ring_px.reshape(-1, 2).to(ring_rot.dtype), ok_c, intrinsics, config.ba, False)
-        return new_rot, new_trans, positions
+        dev = ring_rot.device
+        gather = dev.type == "cuda"
+        plan = _plan(intrinsics, config.ba, fix_first_pose=False, dev=dev, n_poses=w,
+                     n_points=min(config.max_ba_landmarks, w * o_cap), m=w * o_cap, landmark_chunk=2048,
+                     segment_method="gather" if gather else "auto", schur_method="dense", coobs_k=16,
+                     gather_k_pt=w if gather else None, busiest_pose=lambda: o_cap)
+        pts, kf_idx, pt_idx, px, ok, free, write_slots, *tables, err = graphs.run(
+            "ba.setup", functools.partial(_window_problem, plan=plan, config=config),
+            (state.positions, state.valid, state.ids, ring_rot, ring_trans, ring_kf, ring_slots, ring_ids, ring_px,
+             ring_mask), static=(plan, config), eager=w * 6 > 64)
+        new_rot, new_trans, new_pts, _, _ = _lm(plan, ring_rot, ring_trans, pts, err,
+                                                (kf_idx, pt_idx, px, ok, free, None, *tables))
+        return new_rot, new_trans, _set_rows(state.positions, write_slots, new_pts.to(state.positions.dtype))
 
 
 def _carry_tensors(carry: _FusedCarry) -> tuple:

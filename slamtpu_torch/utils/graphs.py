@@ -42,7 +42,7 @@ from .metrics import count
 
 __all__ = ["CAPACITY", "GraphCache", "device_constant", "host_effect", "reset", "run"]
 
-CAPACITY = 16  # graphs kept; the VO pose stage holds 5 a chunk shape, the flagship's map step 1
+CAPACITY = 16  # graphs kept; the VO pose stage holds 5 a chunk shape, the flagship's map step 1, window BA 2
 _SEEN = 64  # keys seen once that are remembered
 
 _SKIP = object()

@@ -1,5 +1,5 @@
-"""CUDA graphs of the pose stage and of the fused flagship's map step on
-the card: a replay is the eager call bit for bit. Marked `cuda`: each test
+"""CUDA graphs of the pose stage, of the fused flagship's map step and of
+its window BA on the card: a replay is the eager call bit for bit. Marked `cuda`: each test
 skips on a host without a CUDA device (decided inside the fixture). No JAX here, so on the GPU
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py`
 runs them.
@@ -8,8 +8,9 @@ For each case, eager references come from calls that are each a first
 sighting (the cache is reset before each); then one key is seen once,
 captured with one draw block and replayed with another, so the static
 buffers must be refreshed, and the outputs cloned at the capture must
-survive the replay. The map step is held at the flagship cell's size: whole
-runs through the cache against a run with every region eager.
+survive the replay. The map step and window BA are held at the flagship
+cell's size: whole runs through the cache against a run with every region
+eager.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from slamtpu_torch.feature.detector import OrbFeatures
+from slamtpu_torch.mapping.bundle_adjustment import BundleAdjuster, Observation
 from slamtpu_torch.io.synthetic import render_sequence
 from slamtpu_torch.odometry.pose import PoseEstimator
 from slamtpu_torch.ops import five_point
@@ -27,6 +29,7 @@ from slamtpu_torch.ops.ransac import PairDraws, pair_draws
 from slamtpu_torch.pipeline import point_cloud as pc
 from slamtpu_torch.pipeline.vo import VoConfig, _detect, _pair_poses, seed_features, vo_frontend
 from slamtpu_torch.utils import graphs, metrics
+from test_torch_cuda import _ba_problem
 
 pytestmark = pytest.mark.cuda
 
@@ -283,3 +286,138 @@ def test_map_step_bits_do_not_depend_on_where_its_inputs_lie(cuda):
         assert i == 0 or any(v.storage_offset() for v in views)
         assert _same(region(*views), region(*fresh))
         carry = pc._kf_step(carry, *views[:5], scene.intrinsics, cfg)[0]
+
+
+def test_fused_window_ba_replay_is_eager_bit_for_bit(cuda, monkeypatch):
+    """run_point_cloud_fused at the flagship cell's size twice through the
+    graph cache against a run with every region eager: the map state, the
+    ring and the rest of the carry, the keyframe chain, the observations,
+    the BA runs and the LM iterations of every window solve are equal; the
+    second run replays at least 99 % of its `ba.step` calls and every
+    `ba.setup` after the first run's two."""
+    scene, cfg = _cells_clip(), pc.PointCloudConfig()
+    carries, iters = [], []
+    phase2, lm = pc._fused_phase2_chunk, pc._lm
+
+    def recording(*args, **kwargs):
+        carry, outs = phase2(*args, **kwargs)
+        carries.append(carry)
+        return carry, outs
+
+    def counting(*args):
+        out = lm(*args)
+        iters.append(out[4])
+        return out
+
+    monkeypatch.setattr(pc, "_fused_phase2_chunk", recording)
+    monkeypatch.setattr(pc, "_lm", counting)
+
+    def run():
+        carries.clear()
+        iters.clear()
+        res = pc.run_point_cloud_fused(scene.frames, scene.intrinsics, cfg, chunk_size=C, device=cuda)
+        return res, carries[-1], list(iters)
+
+    cached = graphs.run
+    monkeypatch.setattr(graphs, "run", lambda name, fn, tensors, static=(), eager=False: cached(
+        name, fn, tensors, static, eager=True))
+    eager = run()
+    monkeypatch.setattr(graphs, "run", cached)
+    graphs.reset()
+    first = run()
+    with metrics.tracing():
+        metrics.records()
+        second = run()
+        counts = _counts(metrics.records(), by_span=True)
+    ref, ref_carry, ref_iters = eager
+    assert ref.ba_runs > 0 and len(ref_iters) == ref.ba_runs
+    for got, carry, got_iters in (first, second):
+        assert got_iters == ref_iters
+        assert got.ba_runs == ref.ba_runs and got.successful_frames == ref.successful_frames
+        for field in ref.map_state._fields:
+            assert torch.equal(getattr(got.map_state, field), getattr(ref.map_state, field)), field
+        for name in ("keyframe_rotations", "keyframe_translations", "keyframe_frame_idx"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(ref, name), err_msg=name)
+        for a, b in zip(got.observations, ref.observations):
+            np.testing.assert_array_equal(a, b)
+        assert carry.kf_count == ref_carry.kf_count
+        for name, a, b in zip(carry._fields, carry, ref_carry):
+            if name not in ("map_state", "kf_count"):
+                assert torch.equal(a, b), name
+    steps = [counts.get((f"ba.graph_{k}", "ba.iteration"), 0) for k in ("replays", "captures", "eager")]
+    setups = [counts.get((f"ba.graph_{k}", "map.window_ba"), 0) for k in ("replays", "captures", "eager")]
+    assert sum(steps) == sum(ref_iters) and steps[0] >= 0.99 * sum(steps)
+    assert setups == [ref.ba_runs, 0, 0]
+
+
+def test_window_ba_makes_no_host_sync_inside_its_regions(cuda, monkeypatch):
+    """Window BA on the ring of five keyframe steps, after a warm-up solve:
+    three solves with sync debug mode "error" inside every region call
+    (set-up eager, captured, replayed; iterations likewise), the stop read
+    between them left outside, each solve equal to the first."""
+    scene = _cells_clip()
+    cfg = dataclasses.replace(pc.PointCloudConfig(), ba_interval=0, prune_interval=0)
+    feats0, res, feats = _first_chunk(scene, cfg, cuda)
+    carry = pc._fused_carry_init(cfg, feats0, torch.float32)
+    for i in range(cfg.ba_window):
+        carry = pc._kf_step(carry, feats.xy[i], feats.descriptors[i], feats.mask[i], res.rotations[i],
+                            res.translations[i], scene.intrinsics, cfg)[0]
+    args = (carry.map_state, carry.ring_rot, carry.ring_trans, carry.ring_kf, carry.ring_slots, carry.ring_ids,
+            carry.ring_px, carry.ring_mask, scene.intrinsics, cfg)
+    graphs.reset()
+    pc._fused_window_ba(*args)
+    graphs.reset()
+    cached = graphs.run
+
+    def strict(name, fn, tensors, static=(), eager=False):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return cached(name, fn, tensors, static, eager)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(graphs, "run", strict)
+    torch.cuda.synchronize()
+    with metrics.tracing():
+        metrics.records()
+        outs = [pc._fused_window_ba(*args) for _ in range(3)]
+        counts = _counts(metrics.records())
+    assert all(_same(o, outs[0]) for o in outs[1:])
+    assert counts["ba.graph_captures"] == 2 and counts["ba.graph_replays"] >= 2
+    assert sorted(k[0] for k, g in graphs._CACHE.graphs.items() if g is not None) == ["ba.setup", "ba.step"]
+
+
+def test_large_bundle_adjuster_solve_stays_eager(cuda):
+    """A BundleAdjuster solve of 12 poses, whose 72-row reduced system goes
+    to torch.linalg.solve_ex: both regions run eagerly on every call by the
+    shape rule and nothing is captured; three solves are equal bit for bit
+    and within 1e-8 of the largest coordinate of the same solve on the CPU
+    (the tolerance of tests/test_torch_cuda.py::test_ba_solve_cuda_matches_cpu)."""
+    from slamtpu_torch.odometry.camera import CameraIntrinsics
+
+    cam = CameraIntrinsics(500.0, 500.0, 320.0, 240.0)
+    (rot, trans, pts), obs = _ba_problem(12, 12, 300, torch.float64)
+    poses = list(zip(rot.numpy(), trans.numpy()))
+    points = list(pts.numpy())
+    observations = [Observation(int(k), int(p), x) for k, p, x in zip(obs.kf_idx, obs.pt_idx, obs.pixels.numpy())]
+    ref = BundleAdjuster(cam, device="cpu").optimize(poses, points, observations, fix_first_pose=True)
+    graphs.reset()
+    with metrics.tracing():
+        metrics.records()
+        got = [BundleAdjuster(cam, device=cuda).optimize(poses, points, observations, fix_first_pose=True)
+               for _ in range(3)]
+        counts = _counts(metrics.records())
+    assert counts["ba.lm_iterations"] >= 6
+    assert counts["ba.graph_eager"] == 3 + counts["ba.lm_iterations"]
+    assert not counts.get("ba.graph_captures") and not counts.get("ba.graph_replays")
+    assert not any(k[0].startswith("ba.") for k in [*graphs._CACHE.graphs, *graphs._CACHE.seen])
+
+    def flat(out):
+        return np.concatenate([np.concatenate([r.ravel(), t.ravel()]) for r, t in out[0]] + [np.ravel(out[1])])
+
+    scale = max(np.abs(flat(ref)).max(), 1.0)
+    for out in got:
+        assert out[2] == got[0][2]
+        np.testing.assert_array_equal(flat(out), flat(got[0]))
+        np.testing.assert_allclose(flat(out), flat(ref), rtol=0, atol=1e-8 * scale)
+        np.testing.assert_allclose(out[2], ref[2], rtol=1e-8)

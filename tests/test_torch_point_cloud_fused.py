@@ -42,6 +42,7 @@ from slamtpu.mapping import triangulation as jtri
 from slamtpu.pipeline import point_cloud as jpc
 from slamtpu_torch import convert
 from slamtpu_torch.feature.detector import OrbFeatures
+from slamtpu_torch.mapping import bundle_adjustment as tba
 from slamtpu_torch.io.synthetic import render_sequence as t_render
 from slamtpu_torch.mapping.triangulation import triangulate_points
 from slamtpu_torch.pipeline import point_cloud as tpc
@@ -81,9 +82,12 @@ def fused():
     draws = np.array(jax.vmap(lambda k: jax.random.uniform(k, (ITERS, FEATURES), dtype=jnp.float32))(keys))
     jax_runs = {bi: jpc.run_point_cloud_fused(jscene.frames, jscene.intrinsics, _jax_config(bi), chunk_size=CHUNK)
                 for bi in (0, 5)}
-    ours = {bi: _run(scene, bi, draws) for bi in (0, 5)}
+    with metrics.tracing():
+        metrics.records()
+        ours = {bi: _run(scene, bi, draws) for bi in (0, 5)}
+        counts = _counts(metrics.records())
     host = _run(scene, 0, draws, runner=tpc.run_point_cloud)
-    return dict(scene=scene, jscene=jscene, draws=draws, jax=jax_runs, ours=ours, host=host)
+    return dict(scene=scene, jscene=jscene, draws=draws, jax=jax_runs, ours=ours, host=host, counts=counts)
 
 
 def test_fused_equals_host_loop_without_ba(fused):
@@ -235,6 +239,106 @@ def test_map_step_replays_one_graph_key(fused, monkeypatch):
         np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
     for a, b in zip(got.observations, ref.observations):
         np.testing.assert_array_equal(a, b)
+
+
+def _recording(names, calls):
+    """A graph cache that takes CPU tensors, the capture stubbed as in
+    tests/test_torch_graphs.py, recording (name, key, static) of each call
+    of the named regions; other regions run plainly, as on any CPU."""
+
+    class Recording(graphs.GraphCache):
+        def run(self, name, fn, tensors, static=(), eager=False):
+            if name not in names:
+                return fn(*tensors)
+            calls.append((name, self.key(name, static, tensors), static))
+            return super().run(name, fn, tensors, static, eager)
+
+    return Recording(backend=_FakeBackend(), device_type="cpu")
+
+
+def test_window_ba_replays_one_key_per_region(fused, monkeypatch):
+    """The fused run (BA every 5 keyframes) through a recording cache: the
+    window's set-up and its LM iterations ask for one key each over every
+    solve, with the plan (and, for the set-up, the configuration) as their
+    static; the counters follow the policy; the iterations are the eager
+    run's; and the run equals the eager one bit for bit."""
+    calls = []
+    monkeypatch.setattr(graphs, "_CACHE", _recording(("ba.setup", "ba.step"), calls))
+    scene, ref = fused["scene"], fused["ours"][5]
+    with metrics.tracing():
+        metrics.records()
+        got = _run(scene, 5, fused["draws"])
+        counts = _counts(metrics.records())
+    cfg = convert.point_cloud_config_from_jax(_jax_config(5))
+    plan = tba._Plan(scene.intrinsics, cfg.ba, False, "dense", 16, "scatter", None, "scatter", 0, 2048)
+    setup = [c for c in calls if c[0] == "ba.setup"]
+    step = [c for c in calls if c[0] == "ba.step"]
+    assert len(setup) == ref.ba_runs == 3 and len({key for _, key, _ in setup}) == 1
+    assert len({key for _, key, _ in step}) == 1
+    assert all(static == (plan, cfg) for _, _, static in setup) and all(static == plan for _, _, static in step)
+    iters = fused["counts"]["ba.lm_iterations"]
+    assert counts["ba.lm_iterations"] == len(step) == iters >= 3 and counts["ba.solves"] == 3
+    # One eager call and one capture per region; every other call replays.
+    assert [counts[f"ba.graph_{k}"] for k in ("eager", "captures", "replays")] == [2, 2, 1 + iters - 2]
+    assert got.ba_runs == ref.ba_runs and got.successful_frames == ref.successful_frames
+    for field in ref.map_state._fields:
+        assert torch.equal(getattr(got.map_state, field), getattr(ref.map_state, field)), field
+    for name in ("keyframe_rotations", "keyframe_translations", "keyframe_frame_idx"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    for a, b in zip(got.observations, ref.observations):
+        np.testing.assert_array_equal(a, b)
+
+
+def _window_problem(seed=3):
+    """A problem at the fused window's shapes: 5 poses, 2,048 landmarks and
+    5 x 1,024 observation slots (each pose sees a landmark at most once,
+    ~90 % of slots live), f32, the two oldest poses frozen; noisy start."""
+    rng = np.random.default_rng(seed)
+    cam = t_render(n_frames=1, height=120, width=160, n_points=8, seed=0).intrinsics
+    n_poses, n_points, o_cap = 5, 2048, 1024
+    pts = rng.uniform((-4, -2, 6), (4, 2, 20), (n_points, 3))
+    trans = np.zeros((n_poses, 3))
+    trans[:, 2] = -0.5 * np.arange(n_poses)
+    rot = np.tile(np.eye(3), (n_poses, 1, 1))
+    kf = np.repeat(np.arange(n_poses), o_cap)
+    pt = np.concatenate([rng.choice(n_points, o_cap, replace=False) for _ in range(n_poses)])
+    p_cam = pts[pt] + trans[kf]
+    px = np.stack([cam.fx * p_cam[:, 0] / p_cam[:, 2] + cam.cx, cam.fy * p_cam[:, 1] / p_cam[:, 2] + cam.cy], -1)
+    px += rng.normal(scale=0.5, size=px.shape)
+    mask = rng.uniform(size=kf.size) < 0.9
+    start = (rot, trans + rng.normal(scale=0.02, size=trans.shape), pts + rng.normal(scale=0.05, size=pts.shape))
+    obs = tba.ObservationBatch(torch.from_numpy(kf), torch.from_numpy(pt), torch.from_numpy(px).float(),
+                               torch.from_numpy(mask))
+    free = torch.tensor([False, False, True, True, True])
+    return cam, [torch.from_numpy(a).float() for a in start], obs, free
+
+
+@pytest.mark.parametrize("stop_at_once", [False, True], ids=["runs", "stops-at-once"])
+def test_ba_solve_at_window_shapes_replays_eager_bits(monkeypatch, stop_at_once):
+    """ba_solve in gather mode at the window's shapes, three solves through
+    a recording cache (set-up eager, captured, replayed; each iteration
+    after the second replayed): every solve's outputs and iteration count
+    are the eager call's. A stop on the first iteration (convergence
+    declared at once) still returns after one iteration, replayed too."""
+    cam, start, obs, free = _window_problem()
+    cfg = tba.BaConfig(min_error_change=1e30) if stop_at_once else tba.BaConfig()
+    kw = dict(config=cfg, fix_first_pose=False, pose_mask=free, segment_method="gather", gather_k_pt=5)
+    ref = tba.ba_solve(cam, *start, obs, **kw)
+    assert ref[4] == 1 if stop_at_once else ref[4] >= 3
+    calls = []
+    monkeypatch.setattr(graphs, "_CACHE", _recording(("ba.setup", "ba.step"), calls))
+    with metrics.tracing():
+        metrics.records()
+        got = [tba.ba_solve(cam, *start, obs, **kw) for _ in range(3)]
+        counts = _counts(metrics.records())
+    for out in got:
+        assert out[4] == ref[4]
+        for a, b in zip(out[:4], ref[:4]):
+            assert torch.equal(a, b)
+    steps = [c for c in calls if c[0] == "ba.step"]
+    assert len(steps) == 3 * ref[4] and len({key for _, key, _ in calls}) == 2
+    assert counts["ba.lm_iterations"] == 3 * ref[4] and counts["ba.solves"] == 3
+    assert [counts[f"ba.graph_{k}"] for k in ("eager", "captures", "replays")] == [2, 2, 1 + 3 * ref[4] - 2]
 
 
 def test_single_frame_clip():

@@ -19,6 +19,7 @@ import torch
 
 from slamtpu_torch.feature.detector import OrbConfig
 from slamtpu_torch.io.synthetic import render_sequence
+from slamtpu_torch.mapping import bundle_adjustment
 from slamtpu_torch.ops.ransac import RansacConfig
 from slamtpu_torch.pipeline import point_cloud
 from slamtpu_torch.pipeline.point_cloud import PointCloudConfig, run_point_cloud_fused
@@ -53,18 +54,21 @@ def _pipelines(scene):
 
 def _traced(run, device="cpu"):
     """(result, records, solve iterations, perf_counter_ns bracket) of one
-    traced run; each ba_solve's returned iteration count is kept."""
+    traced run; each solve's iteration count, as its LM loop (`_lm`, which
+    ba_solve and the fused runner's window BA both end in) returns it, is
+    kept."""
     iters = []
-    solve = point_cloud.ba_solve
+    loop = bundle_adjustment._lm
 
     def counted(*args, **kwargs):
-        out = solve(*args, **kwargs)
+        out = loop(*args, **kwargs)
         iters.append(out[4])
         return out
 
     metrics.records()
     with pytest.MonkeyPatch.context() as mp, metrics.tracing():
-        mp.setattr(point_cloud, "ba_solve", counted)
+        mp.setattr(bundle_adjustment, "_lm", counted)
+        mp.setattr(point_cloud, "_lm", counted)
         t0 = time.perf_counter_ns()
         result = run(device)
         t1 = time.perf_counter_ns()
