@@ -8,7 +8,9 @@ same path. It imports torch and numpy only — never jax and nothing of
 
 The public API is re-exported flat at the package root: the 15 names of
 the JAX package's root (`OrbDetector`, `PoseEstimator`, `Map`, ...) and
-`DepthAnythingV2`, which the JAX package does not have.
+`DepthAnythingV2`, `LearnedFrontend` and `LearnedConfig` (SuperPoint +
+LightGlue for `VoConfig(features="superpoint_lightglue")`), which the JAX
+package does not have.
 Each loads its module on first use, so `import slamtpu_torch` costs torch
 and nothing more.
 
@@ -53,6 +55,8 @@ _EXPORTS = {
     "Observation": "slamtpu_torch.mapping.bundle_adjustment",
     "MonoDepth2": "slamtpu_torch.depth.monodepth2",
     "DepthAnythingV2": "slamtpu_torch.depth.depth_anything",
+    "LearnedFrontend": "slamtpu_torch.feature.learned",
+    "LearnedConfig": "slamtpu_torch.feature.learned",
 }
 
 __all__ = sorted(_EXPORTS) + ["resolve_device"]

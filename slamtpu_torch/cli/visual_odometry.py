@@ -4,12 +4,16 @@ Usage:
   python -m slamtpu_torch.cli.visual_odometry <input> [--fx F --fy F --cx F --cy F]
       [--max-features N] [--chunk N] [--output trajectory_output.json]
       [--config slam.json] [--plot traj.png] [--gt poses.txt] [--device cpu]
+      [--features orb|superpoint_lightglue] [--weights superpoint_v1.pth superpoint_lightglue.pth]
 
 <input>: any spec of io/video.py::load_frames (a KITTI sequence directory,
 an image directory, a video file, "synthetic:<T>[x<H>x<W>]" or a .npy
 stack). Without --fx the intrinsics are the input's own (a KITTI
 sequence's P0) or the KITTI preset. Runs on the card unless --device says
-otherwise.
+otherwise. `--features superpoint_lightglue` runs the learned frontend
+(SuperPoint at 2048 keypoints and LightGlue, bfloat16 on CUDA) with the
+published weight files given by --weights (without them, weights drawn
+from --seed: a timing run whose matches are noise).
 """
 
 from __future__ import annotations
@@ -37,7 +41,13 @@ def main(argv=None):
         "over the trajectory's keyframes",
     )
     parser.add_argument("--device", help="torch device (default: cuda; raises without one)")
+    parser.add_argument("--features", choices=("orb", "superpoint_lightglue"), default="orb",
+                        help="the frontend: ORB and Hamming matching, or SuperPoint and LightGlue")
+    parser.add_argument("--weights", nargs=2, metavar=("SUPERPOINT_PTH", "LIGHTGLUE_PTH"),
+                        help="superpoint_v1.pth and superpoint_lightglue.pth for --features superpoint_lightglue")
     args = parser.parse_args(argv)
+    if args.weights and args.features != "superpoint_lightglue":
+        parser.error("--weights is for --features superpoint_lightglue")
 
     import dataclasses
 
@@ -63,9 +73,23 @@ def main(argv=None):
         config = dataclasses.replace(load_config(args.config).vo(), fps=fps)
     else:
         config = VoConfig(orb=OrbConfig(max_features=args.max_features), fps=fps)
+    frontend = None
+    if args.features == "superpoint_lightglue":
+        import torch
+
+        from ..feature.learned import LearnedFrontend
+
+        config = dataclasses.replace(config, features="superpoint_lightglue",
+                                     ransac=dataclasses.replace(config.ransac, octave_sigma=False))
+        if args.weights:
+            superpoint, lightglue = (torch.load(path, map_location="cpu", weights_only=True) for path in args.weights)
+        else:
+            superpoint = lightglue = None
+            print(f"No --weights: SuperPoint and LightGlue weights drawn from seed {args.seed} (matches are noise)")
+        frontend = LearnedFrontend(superpoint, lightglue, seed=args.seed, device=device)
     timer = StepTimer()
     timer.start()
-    run = run_vo(frames, cam, config, chunk_size=args.chunk, seed=args.seed, device=device)
+    run = run_vo(frames, cam, config, chunk_size=args.chunk, seed=args.seed, device=device, frontend=frontend)
     elapsed = timer.stop()  # run_vo returns host arrays: the device work is done
 
     print("\nSummary")

@@ -68,7 +68,7 @@ def _convert(cls, obj):
     if extra:
         raise ValueError(f"{type(obj).__name__} fields with no port counterpart: {sorted(extra)}")
     kwargs = {}
-    for name in known:
+    for name in known & {f.name for f in dataclasses.fields(obj)}:  # a port-only field keeps its default
         value = getattr(obj, name)
         kwargs[name] = _convert(_NESTED[name], value) if name in _NESTED else value
     return cls(**kwargs)

@@ -18,7 +18,7 @@ import torch
 
 from .. import resolve_device
 from ..odometry.camera import CameraIntrinsics
-from .vo import VoConfig, VoRun, run_vo
+from .vo import VoConfig, VoRun, require_orb, run_vo
 
 __all__ = ["disp_to_depth", "backproject_depth", "align_depth_scale", "run_depth_mapping", "DepthMappingResult"]
 
@@ -111,6 +111,7 @@ def run_depth_mapping(
     each keyframe's depth is median-aligned against `landmarks_world`
     ([N, 3], e.g. the VO point cloud).
     """
+    require_orb(vo_config or VoConfig(), "run_depth_mapping")
     dev = resolve_device(device)
     run = run_vo(frames, intrinsics, vo_config or VoConfig(), chunk_size=32, seed=seed, device=dev)
 

@@ -55,7 +55,7 @@ from ..odometry.trajectory import Trajectory
 from ..ops.hamming import descriptor_bits
 from ..utils import graphs
 from ..utils.metrics import span
-from .vo import VoConfig, vo_frontend
+from .vo import VoConfig, require_orb, vo_frontend
 
 __all__ = ["PointCloudConfig", "PointCloudResult", "run_point_cloud", "run_point_cloud_fused", "run_global_ba"]
 
@@ -180,6 +180,7 @@ def run_point_cloud(frames, intrinsics: CameraIntrinsics, config: PointCloudConf
     pose_dtype: the dtype of the frontend's device pose chain (f32 as in
     the JAX package without x64); the keyframe chain is numpy f64.
     """
+    require_orb(config.vo, "run_point_cloud")
     rr_log = rerun_logger if (rerun_logger is not None and rerun_logger.active) else None
     dev = resolve_device(device)
     t_total = frames.shape[0]
@@ -878,6 +879,7 @@ def run_point_cloud_fused(frames, intrinsics: CameraIntrinsics, config: PointClo
     run once all device work has finished, before the result is copied to
     the host.
     """
+    require_orb(config.vo, "run_point_cloud_fused")
     with span("flagship.run", root=True):
         dev = resolve_device(device)
         t_total = frames.shape[0]
